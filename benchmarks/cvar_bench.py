@@ -1,4 +1,4 @@
-"""Batched minimum-CVaR portfolios on one TPU chip.
+"""Batched minimum-CVaR portfolios on one GPU.
 
 A fourth measured problem family (after lasso, TV, SVM): B scenario
 matrices (e.g. bootstrap resamples or rolling windows of the same
@@ -10,8 +10,7 @@ the widened prox catalogue, against a sequential loop of single solves
 
     python benchmarks/cvar_bench.py [--reps 5] [--batch 64] [--loop-n 8]
 
-Appends one JSON line per variant; results recorded in
-benchmarks/results_cvar.jsonl and BASELINE.md.
+Prints one JSON line per variant.
 """
 
 import argparse
@@ -24,7 +23,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _timing import timed_solve  # noqa: E402
+from _timing import setup, timed_solve  # noqa: E402
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -53,6 +52,7 @@ def main():
     ap.add_argument("--loop-n", type=int, default=8,
                     help="single solves to time for the sequential baseline")
     args = ap.parse_args()
+    setup()
     B = args.batch
 
     from proxtpu.algorithms import ChambollePock

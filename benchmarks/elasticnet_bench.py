@@ -1,10 +1,10 @@
-"""TPU measurement: batched elastic net through the fused kernel route.
+"""GPU measurement: batched elastic net through the batched-lasso route.
 
-Round 5 gave the lasso kernel family a ``lam2`` ridge epilogue (the
-combined ElasticNet prox: soft threshold, then divide by
-``1 + gamma*lam2`` — bit-matching ``ElasticNet.prox``), so the
-reference's second problem family (`test_elasticnet.jl`) now rides the
-fused A-stream kernel instead of the generic vmapped driver.  This
+The batched lasso solvers take a ``lam2`` ridge epilogue (the combined
+ElasticNet prox: soft threshold, then divide by ``1 + gamma*lam2`` —
+bit-matching ``ElasticNet.prox``), so the reference's second problem
+family (`test_elasticnet.jl`) rides the batched-lasso step (the fused
+kernel for float32 on a GPU) instead of the generic vmapped driver.  This
 measures, same-process / host-fenced / median-of-reps at the flagship
 shape (256 x 200x400, f32, tol 1e-5, distinct per-lane (A, b), per-lane
 lam1 and lam2):
@@ -40,7 +40,7 @@ from proxtpu.parallel import BatchedAlgorithm
 from proxtpu.prox import ElasticNet, LeastSquaresLoss
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _timing import timed_solve  # noqa: E402
+from _timing import setup, timed_solve  # noqa: E402
 
 M, N, BATCH, TOL = 200, 400, 256, 1e-5
 
@@ -59,6 +59,7 @@ def recheck_f64(A, b, lam1, lam2, Lf, xs):
 
 
 def main():
+    setup()
     reps = 2 if "--quick" in sys.argv else 5
     out_path = None
     if "--out" in sys.argv:

@@ -1,10 +1,8 @@
-"""Batched on-chip throughput for the three unmeasured solver families.
+"""Batched GPU throughput for three further solver families.
 
-Round-3 proved chip throughput on the FB/FISTA/line-search/Chambolle-Pock
-families; DavisYin (3-term splitting), LiLin (nonconvex accelerated) and
-SFISTA (strongly convex accelerated) had parity tests but no chip numbers
-(VERDICT r3 task 8, mirroring the breadth of the reference's benchmark
-matrix, ``/root/reference/benchmark/benchmarks.jl:47-134``).  Each family
+DavisYin (3-term splitting), LiLin (nonconvex accelerated) and SFISTA
+(strongly convex accelerated), mirroring the breadth of the reference's
+benchmark matrix (``/root/reference/benchmark/benchmarks.jl:47-134``).  Each family
 runs through ``BatchedAlgorithm`` at a flagship-class shape with distinct
 per-lane data, all-lanes-converged asserted, and a host-recomputed
 correctness check:
@@ -24,8 +22,7 @@ correctness check:
   fixed-point residual recomputed on host in f64.
 
 Usage: python benchmarks/families_bench.py [--reps 5] [--batch 256]
-Appends one JSON line per variant; committed record:
-benchmarks/results_families.jsonl (+ BASELINE.md rows).
+Prints one JSON line per variant.
 """
 
 import argparse
@@ -37,7 +34,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _timing import timed_solve  # noqa: E402
+from _timing import setup, timed_solve  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -110,7 +107,7 @@ def li_lin_nonconvex_qp(B, reps):
     property, not a precision or batching artifact: the same lanes cycle
     in float64, on CPU, for 30k iterations, through the exact-parity
     batched driver; a smaller gamma makes it WORSE (0.95/L -> 88%
-    converged, 0.5/L -> 70%, 0.3/L -> 64% on this chip).  The reference's
+    converged, 0.5/L -> 70%, 0.3/L -> 64%).  The reference's
     own tests never see this because they sample five 100-d seeds
     (``test_nonconvex_qp.jl:69-135``).  Since this benchmark measures
     *throughput*, the timed batch is screened to B convergent instances
@@ -141,7 +138,7 @@ def li_lin_nonconvex_qp(B, reps):
         f=Quadratic(jnp.asarray(Qs), jnp.asarray(qs)),
         g=IndBox(low, upp), gamma=jnp.asarray(gammas),
     )
-    # reproducible robustness rows (BASELINE.md round-4 study): the same
+    # reproducible robustness rows: the same
     # unscreened family through theta_restart and plain FB
     _, _, d_tr = solver(
         x0=jnp.zeros((gen, n), jnp.float32),
@@ -250,6 +247,7 @@ def main():
     ap.add_argument("--only", default="",
                     choices=["", "davisyin", "lilin", "sfista"])
     args = ap.parse_args()
+    setup()
 
     print(json.dumps({"devices": [str(d) for d in jax.devices()]}),
           flush=True)

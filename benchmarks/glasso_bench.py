@@ -1,4 +1,4 @@
-"""Batched graphical lasso on one TPU chip — the eigh-prox op mix.
+"""Batched graphical lasso on one GPU — the eigh-prox op mix.
 
 A seventh measured problem family: matrix-valued iterates whose prox runs
 B on-device EIGENDECOMPOSITIONS per iteration (``NegLogDet`` via ``Tilt``)
@@ -6,8 +6,7 @@ plus a weighted-l1 threshold — Douglas-Rachford splitting, no smooth term
 (see ``examples/graphical_lasso.py``).  Complements the SVD-prox family
 (``matrix_completion_bench.py``): together they bound how much batching
 pays when a dense linear-algebra decomposition dominates the step
-(XLA's batched eigh/SVD parallelize far less than batched matvecs —
-BASELINE.md matrix-completion section).
+(XLA's batched eigh/SVD parallelize far less than batched matvecs).
 
 B distinct instances (own sparse SPD precision, exact covariance as S)
 solved as ONE batched DR drive; per-lane KKT residuals recomputed on the
@@ -15,7 +14,6 @@ host in f64 are the correctness gate (no accuracy-for-speed trade hides
 in the throughput number).
 
 Usage: python benchmarks/glasso_bench.py [--reps 3] [--batch 64] [--n 32]
-Committed record: benchmarks/results_glasso.jsonl.
 """
 
 import argparse
@@ -28,15 +26,14 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _timing import timed_solve  # noqa: E402
+from _timing import setup, timed_solve  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-# f32 attainability: at tol 1e-6 one lane in 64 stalls just above the
-# threshold on the chip (the DR residual 2e-6 sits at f32 eigh roundoff
-# for n=32); 1e-5 converges on every lane — same attainability class as
-# the families-bench caveats (BASELINE.md).
+# f32 attainability: at tol 1e-6 a lane can stall just above the
+# threshold (the DR residual 2e-6 sits at f32 eigh roundoff for n=32);
+# 1e-5 converges on every lane.
 TOL = 1e-5
 GAMMA = 2.0
 MAXIT = 2000
@@ -86,6 +83,7 @@ def main():
     ap.add_argument("--lam", type=float, default=0.05)
     ap.add_argument("--loop-n", type=int, default=8)
     args = ap.parse_args()
+    setup()
     B, n, lam = args.batch, args.n, args.lam
 
     import proxtpu as pa

@@ -1,4 +1,4 @@
-"""TPU measurement: batched sparse logistic regression (nonquadratic f).
+"""GPU measurement: batched sparse logistic regression (nonquadratic f).
 
 The reference's second headline problem family
 (``test/problems/test_sparse_logistic_small.jl``): minimize
@@ -14,16 +14,16 @@ Paths, back-to-back in one process:
 
 * flat ZeroFPR, Shared A vs stacked A;
 * flat PANOC, Shared A;
-* bounded-lowering PANOC (generic driver) — the r2-era comparison point.
+* bounded-lowering PANOC (generic driver).
 
-FISTA is deliberately absent: measured on this chip, f32 FISTA stalls at a
+FISTA is deliberately absent: f32 FISTA stalls at a
 gradient-noise floor of ``||res||_inf/gamma ~ 2e-3`` (f64-recomputed; the
 f64 solve converges in 113-1009 iterations) — the logistic f at magnitude
 ~100 and x at ~4.5 leave tol<=1e-4 unattainable for the f32 fixed-point
 map, while the quasi-Newton machines cross their (equally f32-computed)
 threshold in <=90 iterations.  The cross-solver solution gap of ~2e-3
 below IS that noise floor.  For reference-grade logistic tolerances enable
-``jax_enable_x64`` (BASELINE.md).
+``jax_enable_x64``.
 
 Usage: python benchmarks/logistic_bench.py [--quick] [--only=a,b]
 """
@@ -47,7 +47,7 @@ from proxtpu.parallel.flat_ls import batched_panoc, batched_zerofpr
 from proxtpu.prox import LogisticLoss, NormL1, Translate
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _timing import timed_solve  # noqa: E402
+from _timing import setup, timed_solve  # noqa: E402
 
 M, N = 200, 400
 BATCH = 256
@@ -78,6 +78,7 @@ def timed(tag, run, reps):
 
 
 def main():
+    setup()
     quick = "--quick" in sys.argv
     only = None
     for a in sys.argv[1:]:

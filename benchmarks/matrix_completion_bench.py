@@ -1,4 +1,4 @@
-"""Batched low-rank matrix completion on one TPU chip.
+"""Batched low-rank matrix completion on one GPU.
 
 A measured problem family with a completely different op mix from the
 lasso/TV/SVM/CVaR/logistic suites: matrix-valued iterates and an
@@ -13,7 +13,6 @@ entries is the correctness check (the test-set analogue of
 ``tests/test_matrix_completion.py``).
 
 Usage: python benchmarks/matrix_completion_bench.py [--reps 3] [--batch 64]
-Committed record: benchmarks/results_matrix_completion.jsonl.
 """
 
 import argparse
@@ -26,7 +25,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _timing import timed_solve  # noqa: E402
+from _timing import setup, timed_solve  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -43,6 +42,7 @@ def main():
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--loop-n", type=int, default=8)
     args = ap.parse_args()
+    setup()
     B = args.batch
 
     import proxtpu as pa

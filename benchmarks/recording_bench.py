@@ -1,4 +1,4 @@
-"""TPU measurement: overhead of on-device trace recording.
+"""GPU measurement: overhead of on-device trace recording.
 
 ``batched_run_recorded`` keeps per-lane convergence curves in the
 while-loop carry ((slots, B) buffers, one branchless dynamic-index write
@@ -35,7 +35,7 @@ from proxtpu.prox import NormL1, make_least_squares
 from proxtpu.utils.tree import tree_inf_norm
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _timing import timed_solve  # noqa: E402
+from _timing import setup, timed_solve  # noqa: E402
 
 M, N = 200, 400
 BATCH = 256
@@ -69,7 +69,7 @@ def main():
     reps = 3 if "--quick" in sys.argv else 5
     batch = 64 if "--quick" in sys.argv else BATCH
     iteration = build_iteration(batch)
-    platform = jax.devices()[0].platform
+    platform = setup()
 
     variants = {
         "plain": lambda: batched_run_loop(iteration, MAXIT, TOL),

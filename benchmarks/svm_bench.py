@@ -1,4 +1,4 @@
-"""Batched soft-margin SVM regularization path on one TPU chip.
+"""Batched soft-margin SVM regularization path on one GPU.
 
 A third headline problem family (after lasso and TV): the hinge loss is
 nonsmooth AND composed with the data matrix, so every solve is a
@@ -9,8 +9,7 @@ variant.
 
     python benchmarks/svm_bench.py [--reps 5] [--batch 256]
 
-Appends one JSON line per variant; results recorded in
-benchmarks/results_svm.jsonl and BASELINE.md.
+Prints one JSON line per variant.
 """
 
 import argparse
@@ -22,7 +21,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-from _timing import timed_solve  # noqa: E402
+from _timing import setup, timed_solve  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -38,6 +37,7 @@ def main():
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--only", default="")
     args = ap.parse_args()
+    setup()
     B = args.batch
 
     from proxtpu.algorithms.primal_dual import make_afba_iteration

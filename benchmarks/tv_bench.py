@@ -1,13 +1,14 @@
 """Batched TV-denoising throughput (the north star's second workload family).
 
-Two paths, measured back-to-back in one process (median of --repeat runs,
-host-transfer fenced):
+Paths, measured back-to-back in one process (median of --repeat runs,
+fenced by ``jax.block_until_ready``):
 
 * generic — vmapped Chambolle-Pock through the batched driver (the path any
   algorithm gets for free);
-* kernel  — :func:`proxtpu.kernels.tv.solve_tv_batch`, the fused Pallas
-  kernel with K iterations per HBM round-trip (pure-XLA fused step on
-  non-TPU platforms).
+* blocked — :func:`proxtpu.kernels.tv.solve_tv_batch`, the XLA step with
+  K iterations per while-loop trip;
+* mxu — the same harness with the stencils as bidiagonal matmuls
+  (``formulation="mxu"``).
 
     python benchmarks/tv_bench.py [--repeat 5] [--batch 64] [--hw 64]
 
@@ -35,20 +36,17 @@ def main():
     ap.add_argument("--repeat", type=int, default=5)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--hw", type=int, default=64)
-    ap.add_argument("--paths", default="generic,kernel")
+    ap.add_argument("--paths", default="generic,blocked")
     ap.add_argument("--iter-block", type=int, default=8)
-    ap.add_argument("--lanes", type=int, default=None)
-    ap.add_argument("--force-xla", action="store_true",
-                    help="use the fused-XLA step instead of the Pallas "
-                    "kernel on TPU (still iteration-blocked)")
-    ap.add_argument("--platform", default=None)
     args = ap.parse_args()
 
     import jax
     import jax.numpy as jnp
 
-    if args.platform:
-        jax.config.update("jax_platforms", args.platform)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from _timing import setup
+
+    platform = setup()
 
     from proxtpu.algorithms.primal_dual import make_chambolle_pock_iteration
     from proxtpu.kernels.tv import solve_tv_batch
@@ -56,7 +54,6 @@ def main():
     from proxtpu.parallel.batch import batched_run_loop
     from proxtpu.prox import NormL21, SqrDistance
 
-    platform = jax.devices()[0].platform
     BATCH, H, W = args.batch, args.hw, args.hw
     rng = np.random.default_rng(0)
     clean = np.zeros((BATCH, H, W), np.float32)
@@ -66,13 +63,13 @@ def main():
     )
 
     def timed(solve):
-        xs, iters, done = solve()  # compile + warm
+        xs, iters, done = jax.block_until_ready(solve())  # compile + warm
         times = []
         for _ in range(args.repeat):
             t0 = time.perf_counter()
-            solve()
+            jax.block_until_ready(solve())
             times.append(time.perf_counter() - t0)
-        return float(np.median(times)), iters, done
+        return float(np.median(times)), np.asarray(iters), np.asarray(done)
 
     paths = args.paths.split(",")
     results = {}
@@ -90,7 +87,7 @@ def main():
 
         def solve_generic():
             sols, iters, done = batched_run_loop(iteration, MAXIT, TOL)
-            return np.asarray(sols[0]), np.asarray(iters), np.asarray(done)
+            return sols[0], iters, done
 
         dt, iters, done = timed(solve_generic)
         results["generic"] = BATCH / dt
@@ -104,21 +101,17 @@ def main():
             "all_done": bool(done.all()),
         }), flush=True)
 
-    if "kernel" in paths:
-        use_kernel = platform == "tpu" and not args.force_xla
-
-        def solve_kernel():
-            x, iters, done = solve_tv_batch(
+    if "blocked" in paths:
+        def solve_blocked():
+            return solve_tv_batch(
                 noisy, LAM, TOL, maxit=MAXIT, iter_block=args.iter_block,
-                use_kernel=use_kernel, lanes=args.lanes,
             )
-            return np.asarray(x), np.asarray(iters), np.asarray(done)
 
-        dt, iters, done = timed(solve_kernel)
-        results["kernel"] = BATCH / dt
+        dt, iters, done = timed(solve_blocked)
+        results["blocked"] = BATCH / dt
         rec = {
             "metric": "batched_tv_denoise_images_per_sec",
-            "path": "kernel" if use_kernel else "fused_xla",
+            "path": "blocked",
             "value": round(BATCH / dt, 2),
             "unit": f"images/s ({H}x{W}, CP to FPR {TOL}, batch={BATCH}, "
                     f"{platform}, K={args.iter_block})",
@@ -127,22 +120,19 @@ def main():
         }
         if "generic" in results:
             rec["speedup_vs_generic"] = round(
-                results["kernel"] / results["generic"], 2
+                results["blocked"] / results["generic"], 2
             )
         print(json.dumps(rec), flush=True)
 
     if "mxu" in paths:
-        # MXU-stencil formulation: gradient/divergence as bidiagonal-matmul
-        # contractions (proxtpu.kernels.tv.mxu_cp_step) through the same
-        # iteration-blocked harness — measures whether routing the stencil
-        # to the systolic array beats the elementwise-chain per-trip floor
-        # (VERDICT r2 weak #5 / next-round #6).
+        # matmul-stencil formulation: gradient/divergence as bidiagonal
+        # matmul contractions (proxtpu.kernels.tv.mxu_cp_step) through the
+        # same iteration-blocked harness
         def solve_mxu():
-            x, iters, done = solve_tv_batch(
+            return solve_tv_batch(
                 noisy, LAM, TOL, maxit=MAXIT, iter_block=args.iter_block,
-                use_kernel=False, formulation="mxu",
+                formulation="mxu",
             )
-            return np.asarray(x), np.asarray(iters), np.asarray(done)
 
         dt, iters, done = timed(solve_mxu)
         results["mxu"] = BATCH / dt
@@ -155,7 +145,7 @@ def main():
             "mean_it": round(float(iters.mean()), 1),
             "all_done": bool(done.all()),
         }
-        for other in ("generic", "kernel"):
+        for other in ("generic", "blocked"):
             if other in results:
                 rec[f"speedup_vs_{other}"] = round(
                     results["mxu"] / results[other], 2

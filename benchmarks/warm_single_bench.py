@@ -1,15 +1,13 @@
 """Single-problem precision warm-starting on the reference's lasso_medium.
 
-BASELINE.md round 4 recorded the honest single-problem story: all 10
-solvers reach tol=1e-6 on the reference's largest own workload in f64 on
-chip, but at 0.3-1.1x a single CPU core — the x64 software emulation pays
-3-5x per iteration for hundreds of f32-reachable iterations.
+All 10 solvers reach tol=1e-6 on the reference's largest own workload in
+f64, but a float64 iteration costs more than a float32 one, and most of
+the iterations are reachable in f32.
 ``WarmStartedAlgorithm`` moves those iterations to native f32 and leaves
 only the polish in f64; this measures the effect per solver family and
 checks each warm solution against the cold-f64 one.
 
 Usage: python benchmarks/warm_single_bench.py [--repeat 3]
-Committed record: benchmarks/results_warm_single.jsonl (+ BASELINE.md).
 """
 
 import argparse
@@ -32,6 +30,7 @@ import jax.numpy as jnp  # noqa: E402
 import proxtpu as pa  # noqa: E402
 from proxtpu.parallel import WarmStartedAlgorithm  # noqa: E402
 from proxtpu.prox import NormL1, make_least_squares  # noqa: E402
+from _timing import setup  # noqa: E402
 from run_benchmarks import load_workload  # noqa: E402
 
 TOL = 1e-6
@@ -41,6 +40,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
+    setup()
 
     A_np, b_np, lam = load_workload("lasso_medium.jld2")
     A = jnp.asarray(A_np, jnp.float64)
@@ -82,12 +82,12 @@ def main():
 
         def timeit(run):
             out = run()
-            _ = np.asarray(out[0])  # host fence
+            jax.block_until_ready(out)
             ts = []
             for _i in range(args.repeat):
                 t0 = time.perf_counter()
                 out = run()
-                _ = np.asarray(out[0])
+                jax.block_until_ready(out)
                 ts.append(time.perf_counter() - t0)
             return float(np.min(ts)), out
 

@@ -22,7 +22,7 @@ import proxtpu as pa
 from proxtpu.prox import NormL1, make_least_squares
 from proxtpu.utils.tree import tree_inf_norm
 
-TOL = 1e-5  # attainable in float32 (TPU default); tighten under jax_enable_x64
+TOL = 1e-5  # attainable in float32 (the default dtype); tighten under jax_enable_x64
 MAXIT = 1000
 
 

@@ -12,7 +12,7 @@ Douglas-Rachford splitting over a MATRIX iterate:
 
 The lam PATH is the batched story: `vmap` over the regularization value
 turns the path sweep into one batched eigh-prox drive — the same scenario
-batching every other family uses (``docs/tpu_scaling.md``).
+batching every other family uses (``docs/scaling.md``).
 
     python examples/graphical_lasso.py
 """

@@ -39,8 +39,8 @@ def main():
 
     # the data is IDENTICAL across the path, so mark it Shared — the
     # batched driver maps it with in_axes=None and every per-lambda
-    # matvec runs as one MXU matmul (9.7x over stacking copies, measured
-    # at the flagship shape; see docs/tpu_scaling.md)
+    # matvec runs as one matmul instead of streaming one copy of A per
+    # lane (see docs/scaling.md)
     iteration = make_fast_forward_backward_iteration(
         x0=jnp.zeros((lams.shape[0], n), jnp.float32),
         f=Shared(LeastSquaresLoss(A, b)),
@@ -57,7 +57,7 @@ def main():
     print(f"all converged: {bool(jnp.all(done))}")
 
     # Because every path point shares the SAME design matrix, the whole
-    # path also fits the shared-A MXU formulation — one (64,n)@(n,m)
+    # path also fits the shared-A matmul formulation — one (64,n)@(n,m)
     # matmul per iteration instead of 64 per-lane matvecs:
     from proxtpu.kernels import solve_lasso_multirhs
 

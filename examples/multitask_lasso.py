@@ -6,7 +6,7 @@ T regression tasks share the design matrix A and (unknown to the solver)
 the same active feature set; the l2,1 penalty couples them so features
 switch on/off jointly across tasks.  The iterate is the whole (n, T)
 coefficient MATRIX — the solvers are generic over array iterates, so
-FISTA runs on it unchanged, and every MXU matmul carries all T tasks.
+FISTA runs on it unchanged, and every matmul carries all T tasks.
 
     python examples/multitask_lasso.py
 """

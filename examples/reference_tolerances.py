@@ -1,13 +1,12 @@
-"""Example: reference-grade tolerances (1e-6 .. 1e-8) on TPU, fast.
+"""Example: reference-grade tolerances (1e-6 .. 1e-8) on an accelerator, fast.
 
 The reference's accuracy class (``test/problems/test_lasso_small.jl:42-53``
-solves to tol=1e-6) needs float64, which TPUs emulate in software — a cold
-f64 batched solve re-pays hundreds of f32-reachable iterations at emulated
-cost.  ``WarmStartedBatchedAlgorithm`` removes that waste: stage 1 solves
+solves to tol=1e-6) needs float64, which costs more per iteration than
+float32 — a cold f64 batched solve re-pays hundreds of f32-reachable
+iterations at that cost.  ``WarmStartedBatchedAlgorithm`` removes that waste: stage 1 solves
 the batch in float32 to the f32 noise floor, stage 2 polishes in float64
-from the warm iterate with the SAME stopping criterion.  Measured on one
-v5e: 4x a cold f64 solve at tol 1e-6 and 1e-8 at the flagship shape
-(BASELINE.md round 4, ``benchmarks/results_x64_batched.jsonl``).
+from the warm iterate with the SAME stopping criterion
+(``benchmarks/x64_batched.py`` measures warm against cold).
 
 Requires ``jax_enable_x64`` (set before any jax op).
 
@@ -43,8 +42,8 @@ def main(m=40, n=80, path_points=16, tol=1e-8, verbose=True):
     Lf = float(np.linalg.norm(np.asarray(A), 2) ** 2)
 
     # at tol <= 1e-8, adaptive restart caps the slow lanes' momentum
-    # oscillation (7.3x a cold f64 solve end-to-end, x64_restart_* rows);
-    # at 1e-6 leave it off — plain warm is faster (BASELINE.md)
+    # oscillation; at 1e-6 leave it off — too few polish iterations remain
+    # to pay for the per-step restart check
     restart = (dict(extrapolation_sequence=AdaptiveRestartSequence())
                if tol <= 1e-8 else {})
     solver = WarmStartedBatchedAlgorithm(

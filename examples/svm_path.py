@@ -5,7 +5,7 @@ min_x (1/m) sum_i max(0, 1 - y_i <a_i, x>) + lam/2 ||x||^2
 The hinge term is nonsmooth and composed with the data matrix, so each
 solve is a primal-dual (Chambolle-Pock) run; the lam sweep becomes ONE
 batched drive with the data matrix marked ``Shared`` (lane-invariant:
-the per-lane matvecs lower to one MXU matmul).
+the per-lane matvecs lower to one matmul).
 
     python examples/svm_path.py
 """

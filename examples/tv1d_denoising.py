@@ -4,11 +4,10 @@
 
 The solution is ONE prox evaluation: ``TotalVariation1D(lam).prox(y, 1.0)``.
 Upstream, ``ProximalOperators.TotalVariation1D`` computes this with Condat's
-sequential taut-string scan — one signal at a time.  The TPU-native prox is
+sequential taut-string scan — one signal at a time.  The batched prox is
 a dual FGP with adaptive restart (fixed-shape ``lax`` loop), so a whole
-BATCH of signals denoises as one vectorized ``vmap`` call (measured 122x
-the taut string's single-core throughput at 4096x512 —
-``benchmarks/results_tv1d.jsonl``).
+BATCH of signals denoises as one vectorized ``vmap`` call
+(``benchmarks/tv1d_bench.py`` measures it against the taut string).
 
     python examples/tv1d_denoising.py
 """

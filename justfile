@@ -46,16 +46,19 @@ bench-recording:
     python benchmarks/recording_bench.py
 
 scaling:
+    python benchmarks/scaling.py
+
+scaling-cpu:
     python benchmarks/scaling.py --platform cpu
+
+smoke:
+    python chip_smoke.py
 
 format:
     python -m ruff format proxtpu tests || true
 
 graft-check:
     XLA_FLAGS=--xla_force_host_platform_device_count=8 python __graft_entry__.py
-
-bench-packed:
-    python benchmarks/packed_bench.py
 
 bench-families:
     python benchmarks/families_bench.py

@@ -1,10 +1,10 @@
-"""proxtpu — a TPU-native suite of non-smooth first-order solvers.
+"""proxtpu — a batched, accelerator-native suite of non-smooth first-order solvers.
 
 Built from scratch in JAX (XLA/pjit/Pallas) with the capabilities of
 ProximalAlgorithms.jl (reference mounted read-only at /root/reference; see
 SURVEY.md for the structural analysis that drives this design).
 
-Layer map (mirrors SURVEY.md §1, re-architected for TPU):
+Layer map (mirrors SURVEY.md §1, re-architected for batched accelerators):
 
 * :mod:`proxtpu.prox`       — function-oracle protocol + prox library (L0)
 * :mod:`proxtpu.utils`      — FB toolkit, pytree vector ops, iteration tools (L1)
@@ -12,8 +12,9 @@ Layer map (mirrors SURVEY.md §1, re-architected for TPU):
 * :mod:`proxtpu.algorithms` — the solver suite + jitted while-loop driver (L3)
 * :mod:`proxtpu.ops`        — linear-operator protocol
 * :mod:`proxtpu.parallel`   — vmap scenario batching, sharded operators,
-  consensus splitting over device meshes (new, TPU-only capabilities)
-* :mod:`proxtpu.kernels`    — fused Pallas TPU kernels for the hot inner steps
+  consensus splitting over device meshes (new capabilities)
+* :mod:`proxtpu.kernels`    — batched solvers for the hot problem families,
+  with the fused GPU step kernel of the distinct-A lasso
 """
 
 from . import accel, algorithms, ops, parallel, prox, utils

@@ -9,7 +9,7 @@ The reference materialises S/Y by hcat-ing only the active columns; here the
 buffers are fixed (n, M) matrices whose inactive columns are zero — the
 pseudo-inverse annihilates the corresponding zero rows/cols, so no dynamic
 shapes are needed.  The reference's dense ``pinv(Y'Y)`` (marked
-``# TODO: optimize``) is kept as an M×M pinv, which is tiny and fine on TPU.
+``# TODO: optimize``) is kept as an M×M pinv, which is tiny and fine on an accelerator.
 """
 
 from __future__ import annotations

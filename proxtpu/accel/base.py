@@ -1,4 +1,4 @@
-"""Direction-strategy protocol (the src/accel trait layer, TPU-native).
+"""Direction-strategy protocol (the src/accel trait layer, in JAX).
 
 The reference dispatches line-search direction computation through an
 ``acceleration_style`` trait (``src/accel/traits.jl:1-11``) with three

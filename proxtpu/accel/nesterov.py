@@ -130,9 +130,9 @@ class AdaptiveRestartSequence:
     initial value — for the t-recursions this makes the very next beta 0,
     killing the momentum, after which the sequence rebuilds.  Identical
     fixed point and stopping behavior; typically ~3x fewer iterations once
-    the active set settles (measured in BASELINE.md on the lasso family).
+    the active set settles (measured on the lasso family).
 
-    TPU-extra: no counterpart in the reference (which pins textbook
+    Extension: no counterpart in the reference (which pins textbook
     sequences); the restart test is O'Donoghue & Candès, *Adaptive
     restart for accelerated gradient schemes*, Found. Comput. Math. 2015.
     Drivers that support it (``FastForwardBackward``) detect the

@@ -1,6 +1,6 @@
 """Davis-Yin three-operator splitting.
 
-TPU-native port of ``/root/reference/src/algorithms/davis_yin.jl`` (step at
+JAX port of ``/root/reference/src/algorithms/davis_yin.jl`` (step at
 lines 56-77): two proxes + one gradient per iteration, relaxation ``lambda``.
 Stopping criterion ``||res||_inf <= tol`` (``davis_yin.jl:79-80``).
 

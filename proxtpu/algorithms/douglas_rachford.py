@@ -1,6 +1,6 @@
 """Douglas-Rachford splitting.
 
-TPU-native port of ``/root/reference/src/algorithms/douglas_rachford.jl``
+JAX port of ``/root/reference/src/algorithms/douglas_rachford.jl``
 (step at lines 53-63): two proxes and three axpys per iteration; ``gamma``
 is required (no default), matching the reference.
 

@@ -1,6 +1,6 @@
 """DRLS: Douglas-Rachford line-search with pluggable directions.
 
-TPU-native port of ``/root/reference/src/algorithms/drls.jl``: line search on
+JAX port of ``/root/reference/src/algorithms/drls.jl``: line search on
 the Douglas-Rachford envelope (DRE, ``drls.jl:90-98``) with L-BFGS /
 Nesterov / no-acceleration directions, quadratic-interpolation shortcut for
 generalized-quadratic f (``drls.jl:172-184``), and the strongly-convex sign

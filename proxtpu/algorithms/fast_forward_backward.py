@@ -1,6 +1,6 @@
 """Accelerated forward-backward splitting (FISTA).
 
-TPU-native port of ``/root/reference/src/algorithms/fast_forward_backward.jl``:
+JAX port of ``/root/reference/src/algorithms/fast_forward_backward.jl``:
 FB step plus Nesterov extrapolation ``x = z + beta (z - z_prev)`` with a
 pluggable coefficient sequence; the default is the stepsize-fed
 ``AdaptiveNesterovSequence(mf)`` which supports strong convexity

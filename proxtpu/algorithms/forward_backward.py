@@ -1,6 +1,6 @@
 """Forward-backward splitting (proximal gradient), fixed or adaptive step.
 
-TPU-native port of ``/root/reference/src/algorithms/forward_backward.jl``:
+JAX port of ``/root/reference/src/algorithms/forward_backward.jl``:
 one ``value_and_gradient`` + one ``prox`` per iteration, with optional
 Armijo backtracking (plus the ``increase_gamma`` regret rule) as an inner
 ``lax.while_loop``.  Stopping criterion: ``||res||_inf / gamma <= tol``

@@ -1,6 +1,6 @@
 """Li-Lin accelerated proximal gradient for nonconvex problems.
 
-TPU-native port of ``/root/reference/src/algorithms/li_lin.jl`` (Algorithm 2
+JAX port of ``/root/reference/src/algorithms/li_lin.jl`` (Algorithm 2
 of Li & Lin, NIPS 2015; step at lines 100-146): extrapolated
 forward-backward step monitored against a nonmonotone moving average
 ``F_average`` (eta=0.8, delta=1e-3).  When the monitor fails, a plain
@@ -83,11 +83,11 @@ class LiLinIteration:
         monitor_ok = Fz <= s.F_average - self.delta * tree_norm_sq(s.res)
         theta = s.theta
         if self.theta_restart:
-            # TPU-extra safeguard (round 4, off by default — the reference
+            # extension safeguard (off by default — the reference
             # has no counterpart): the unbounded theta-recursion keeps the
             # extrapolation coefficient near 1, and on ~12% of random
             # indefinite box-QPs the monitored scheme limit-cycles forever
-            # (measured, f64/CPU too; see BASELINE.md).  A monitor failure
+            # (measured, f64/CPU too).  A monitor failure
             # is direct evidence the momentum is unhelpful, so reset the
             # sequence (the Li-Lin analogue of O'Donoghue-Candes restart):
             # this step's case-1 weight becomes 0 (pure FB from z) and the
@@ -182,10 +182,10 @@ def LiLin(*, maxit=10_000, tol=1e-8, stop=None, solution=None, verbose=False,
     """Li-Lin nonconvex accelerated proximal-gradient solver
     (``li_lin.jl:184-202``).
 
-    Robustness note (measured, BASELINE.md round 4): on ~12% of random
+    Robustness note (measured): on ~12% of random
     indefinite box-QP instances the monitored scheme limit-cycles and
     never reaches the tolerance (also in f64; smaller gamma makes it
-    worse).  ``theta_restart=True`` (TPU-extra, off by default) resets
+    worse).  ``theta_restart=True`` (extension, off by default) resets
     the extrapolation sequence on monitor failures and rescues roughly
     half of those; plain :func:`ForwardBackward` converged on ALL
     instances of the study family, with better objective values — prefer

@@ -1,6 +1,6 @@
 """PANOC: proximal averaged Newton-type method with FBE line search.
 
-TPU-native port of ``/root/reference/src/algorithms/panoc.jl`` (step at
+JAX port of ``/root/reference/src/algorithms/panoc.jl`` (step at
 lines 138-255): hybrid update ``x = tau (x+d) + (1-tau) z`` backtracked on a
 forward-backward-envelope sufficient decrease
 ``FBE <= FBE_x - sigma ||res||^2``, with an L-BFGS direction by default and
@@ -234,7 +234,7 @@ class PANOCIteration:
 
         # backtrack_limit also switches the tau-search to its bounded
         # lowering (trip count is intrinsically max_backtracks), making the
-        # whole step compile under vmap on TPU (see utils/loops.py)
+        # whole step compile fast under vmap (see utils/loops.py)
         out = bounded_while(
             cond, body, carry,
             None if self.backtrack_limit is None else self.max_backtracks,

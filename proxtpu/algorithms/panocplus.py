@@ -1,7 +1,7 @@
 """PANOCplus: PANOC for locally smooth f, interleaving the gamma
 backtracking *inside* the tau line search.
 
-TPU-native port of ``/root/reference/src/algorithms/panocplus.jl`` (step at
+JAX port of ``/root/reference/src/algorithms/panocplus.jl`` (step at
 lines 168-240): a single ``lax.while_loop`` models the reference's
 ``can_update_direction`` / ``continue`` control flow with boolean carries.
 Distinctive stopping criterion on the gradient-corrected residual

@@ -1,9 +1,9 @@
 """Primal-dual splitting: AFBA, Vu-Condat, Chambolle-Pock.
 
-TPU-native port of ``/root/reference/src/algorithms/primal_dual.jl``
+JAX port of ``/root/reference/src/algorithms/primal_dual.jl``
 (Latafat-Patrinos Algorithm 3; step at lines 173-211): per iteration two
 ``L`` applications + two adjoint applications + two proxes + one gradient,
-all MXU matvecs, with the theta/mu-parameterized correction steps.
+all batched matvecs, with the theta/mu-parameterized correction steps.
 
 The default-stepsize engine (``primal_dual.jl:334-427``) is ported with its
 full theta/mu case analysis; ``opnorm(L)`` comes from the operator protocol

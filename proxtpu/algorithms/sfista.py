@@ -1,6 +1,6 @@
 """SFISTA: FISTA-like method for strongly convex composite problems.
 
-TPU-native port of ``/root/reference/src/algorithms/sfista.jl`` (Kong 2021
+JAX port of ``/root/reference/src/algorithms/sfista.jl`` (Kong 2021
 Algorithm 2.2.2; step at lines 65-88): Nesterov-type A/a/tau sequence with a
 prox center ``xt`` blending the previous main and auxiliary iterates.
 

@@ -1,6 +1,6 @@
 """ZeroFPR: quasi-Newton line search on the fixed-point residual.
 
-TPU-native port of ``/root/reference/src/algorithms/zerofpr.jl`` (step at
+JAX port of ``/root/reference/src/algorithms/zerofpr.jl`` (step at
 lines 142-220): forward-backward step at ``xbar``, L-BFGS direction on the
 residual-of-residual, and an FBE-decrease tau line search from ``xbar``
 (``x = xbar_prev + tau d``).

@@ -1,4 +1,4 @@
-"""Fused Pallas TPU kernel for batched box-constrained QP projected gradient.
+"""Batched box-constrained QP projected gradient.
 
 Per problem lane i:
 
@@ -6,14 +6,8 @@ Per problem lane i:
     res_i = ||x_i - z_i||_inf
 
 the projected-gradient step of the nonconvex box-QP family
-(``test/problems/test_nonconvex_qp.jl``).  One VMEM pass over each Q_i per
-iteration, all contractions on the VPU in native f32.
-
-Layout trick: the symmetric matvec is computed as a *sublane* reduction
-``sum_sublanes(Q * x_col)``, which consumes the iterate in the column
-orientation and produces the gradient directly in the row orientation the
-update needs — no in-kernel transpose/relayout.  Both orientations of x are
-cheap host-side reshapes of the (B, n) carry; Q is read from HBM once.
+(``test/problems/test_nonconvex_qp.jl``), run as one batched matvec per
+iteration in XLA.
 """
 
 from __future__ import annotations
@@ -22,101 +16,19 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .common import auto_lanes
-
-
-def _pg_step_kernel(
-    Q_ref, qrow_ref, xrow_ref, xcol_ref, gamma_ref, lo_ref, hi_ref,
-    done_ref, zrow_ref, res_ref,
-):
-    L = Q_ref.shape[0]
-    for l in range(L):
-        Q = Q_ref[l]            # (n, n)
-        x_row = xrow_ref[l]     # (1, n)
-        x_col = xcol_ref[l]     # (n, 1)
-        gamma = gamma_ref[l, 0, 0]
-        lo = lo_ref[l, 0, 0]
-        hi = hi_ref[l, 0, 0]
-        dm = done_ref[l, 0, 0]  # 1.0 = frozen lane
-
-        # symmetric matvec as a sublane reduction: needs x in the *column*
-        # orientation, produces grad directly in the row orientation the
-        # update needs — no in-kernel transpose/relayout
-        grad_row = jnp.sum(Q * x_col, axis=0, keepdims=True) + qrow_ref[l]
-        z_row = jnp.clip(x_row - gamma * grad_row, lo, hi)
-        # frozen lanes pass their iterate through (the freeze select that
-        # used to run as an XLA where per trip)
-        zrow_ref[l] = dm * x_row + (1 - dm) * z_row
-        res_ref[l] = ((1 - dm) * jnp.max(jnp.abs(x_row - z_row))).reshape(
-            1, 1
-        )
-
-
-@partial(jax.jit, static_argnames=("interpret", "lanes"))
-def fused_pg_box_step(Q, q, x, gamma, lo, hi, done_mask=None,
-                      interpret=False, lanes=None):
-    """One fused projected-gradient step for a batch of box QPs.
-
-    Args:
-      Q: (B, n, n) symmetric matrices.  q: (B, n).  x: (B, n).
-      gamma, lo, hi: (B,) per-lane scalars.
-      done_mask: optional (B,) float; 1.0-marked lanes pass x through
-        unchanged (in-kernel freeze) and report res 0.  The row-oriented
-        x input is aliased to the z output (in-place carry update).
-
-    Returns: z (B, n), res_inf (B,).
-    """
-    B, n, _ = Q.shape
-    dtype = Q.dtype
-    L = auto_lanes(B, n * n * dtype.itemsize, lanes)
-    qrow = q.reshape(B, 1, n)
-    xrow = x.reshape(B, 1, n)
-    xcol = x.reshape(B, n, 1)
-    s3 = lambda v: v.reshape(B, 1, 1).astype(dtype)
-    if done_mask is None:
-        done_mask = jnp.zeros((B,), dtype)
-
-    vspec = lambda shape: pl.BlockSpec(
-        (L,) + shape, lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-    )
-    zrow, res = pl.pallas_call(
-        _pg_step_kernel,
-        grid=(B // L,),
-        in_specs=[
-            vspec((n, n)), vspec((1, n)), vspec((1, n)), vspec((n, 1)),
-            vspec((1, 1)), vspec((1, 1)), vspec((1, 1)), vspec((1, 1)),
-        ],
-        out_specs=[vspec((1, n)), vspec((1, 1))],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, 1, n), dtype),
-            jax.ShapeDtypeStruct((B, 1, 1), dtype),
-        ],
-        input_output_aliases={2: 0},
-        cost_estimate=pl.CostEstimate(
-            flops=4 * B * n * n,
-            bytes_accessed=B * n * n * dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(Q, qrow, xrow, xcol, s3(gamma), s3(lo), s3(hi), s3(done_mask))
-    return zrow.reshape(B, n), res.reshape(B)
 
 
 def reference_pg_box_step(Q, q, x, gamma, lo, hi):
-    """Pure-XLA reference of the fused step."""
+    """One batched projected-gradient step ``(z, res_inf)``."""
     grad = jnp.einsum("bij,bj->bi", Q, x,
                       precision=jax.lax.Precision.HIGHEST) + q
     z = jnp.clip(x - gamma[:, None] * grad, lo[:, None], hi[:, None])
     return z, jnp.max(jnp.abs(x - z), axis=1)
 
 
-@partial(jax.jit, static_argnames=("maxit", "use_kernel", "interpret"))
-def solve_box_qp_batch(Q, q, lo, hi, Lip, tol, maxit=10_000, use_kernel=True,
-                       interpret=False, x0=None):
-    """Batched projected-gradient solver for box QPs with the fused step.
+@partial(jax.jit, static_argnames=("maxit",))
+def solve_box_qp_batch(Q, q, lo, hi, Lip, tol, maxit=10_000, x0=None):
+    """Batched projected-gradient solver for box QPs.
 
     ``gamma = 0.95 / Lip`` per lane (the nonconvex-QP test convention);
     stopping rule ``||x - z||_inf / gamma <= tol`` with per-lane freezing.
@@ -127,15 +39,9 @@ def solve_box_qp_batch(Q, q, lo, hi, Lip, tol, maxit=10_000, use_kernel=True,
     gamma = jnp.broadcast_to(gamma, (B,))
     lo_v = jnp.broadcast_to(jnp.asarray(lo, dtype), (B,))
     hi_v = jnp.broadcast_to(jnp.asarray(hi, dtype), (B,))
-    step_fn = (
-        partial(fused_pg_box_step, interpret=interpret)
-        if use_kernel
-        else reference_pg_box_step
-    )
-
     x0 = jnp.zeros((B, n), dtype) if x0 is None else \
         jnp.asarray(x0, dtype).reshape(B, n)
-    z0, res0 = step_fn(Q, q, x0, gamma, lo_v, hi_v)
+    z0, res0 = reference_pg_box_step(Q, q, x0, gamma, lo_v, hi_v)
     done0 = res0 / gamma <= tol
     init = (jnp.asarray(1, jnp.int32), z0, done0, jnp.ones((B,), jnp.int32))
 
@@ -143,160 +49,15 @@ def solve_box_qp_batch(Q, q, lo, hi, Lip, tol, maxit=10_000, use_kernel=True,
         k, x, done, iters = c
         return (k < maxit) & jnp.logical_not(jnp.all(done))
 
-    if use_kernel:
-        # in-kernel freeze + aliased carry: the body is one pallas_call
-        # plus (B,)-scalar bookkeeping
-        def body(c):
-            k, x, done, iters = c
-            z, res = fused_pg_box_step(
-                Q, q, x, gamma, lo_v, hi_v, done.astype(dtype),
-                interpret=interpret,
-            )
-            newly_done = res / gamma <= tol
-            k = k + 1
-            iters = jnp.where(done, iters, k)
-            return (k, z, done | newly_done, iters)
-    else:
-        def body(c):
-            k, x, done, iters = c
-            z, res = step_fn(Q, q, x, gamma, lo_v, hi_v)
-            newly_done = res / gamma <= tol
-            x = jnp.where(done[:, None], x, z)
-            k = k + 1
-            iters = jnp.where(done, iters, k)
-            return (k, x, done | newly_done, iters)
+    def body(c):
+        k, x, done, iters = c
+        z, res = reference_pg_box_step(Q, q, x, gamma, lo_v, hi_v)
+        newly_done = res / gamma <= tol
+        x = jnp.where(done[:, None], x, z)
+        k = k + 1
+        iters = jnp.where(done, iters, k)
+        return (k, x, done | newly_done, iters)
 
     k, x, done, iters = jax.lax.while_loop(cond, body, init)
     iters = jnp.where(done, iters, k)
-    return x, iters, done
-
-
-def _pg_k_steps_kernel(K):
-    """K projected-gradient iterations per invocation with Q resident in
-    VMEM (iteration blocking; see lasso._fb_k_steps_kernel).
-
-    Unlike the one-step kernel, the iterate must cross steps *inside* the
-    kernel, where the update consumes it as a row and the next step's
-    reduction consumes it as a column.  To avoid a per-step
-    transpose/relayout, the carry holds BOTH orientations; for symmetric Q
-    each is advanced by the reduction that produces it natively (lane
-    reduction -> column, sublane reduction -> row).  VPU compute doubles,
-    but the blocked kernel is HBM-bound on Q for the shapes where blocking
-    matters, so the trade is net-positive."""
-
-    def kernel(Q_ref, qrow_ref, qcol_ref, xrow_ref, xcol_ref, gamma_ref,
-               lo_ref, hi_ref, done_ref, xo_ref, res_ref):
-        L = Q_ref.shape[0]
-        for l in range(L):
-            Q = Q_ref[l]
-            qrow = qrow_ref[l]   # (1, n)
-            qcol = qcol_ref[l]   # (n, 1)
-            gamma = gamma_ref[l, 0, 0]
-            lo = lo_ref[l, 0, 0]
-            hi = hi_ref[l, 0, 0]
-            dm = done_ref[l, 0, 0]
-
-            def step(_, carry):
-                x_row, x_col, _res = carry
-                # symmetric Q: both orientations of the gradient from the
-                # reduction that yields each natively (no transpose)
-                grad_row = jnp.sum(Q * x_col, axis=0, keepdims=True) + qrow
-                grad_col = jnp.sum(Q * x_row, axis=1, keepdims=True) + qcol
-                z_row = jnp.clip(x_row - gamma * grad_row, lo, hi)
-                z_col = jnp.clip(x_col - gamma * grad_col, lo, hi)
-                res = jnp.max(jnp.abs(x_row - z_row))
-                return (z_row, z_col, res)
-
-            x_in = xrow_ref[l]
-            x_row, x_col, res = jax.lax.fori_loop(
-                0, K, step,
-                (x_in, xcol_ref[l], jnp.zeros((), Q.dtype)),
-            )
-            xo_ref[l] = dm * x_in + (1 - dm) * x_row
-            res_ref[l] = ((1 - dm) * res).reshape(1, 1)
-
-    return kernel
-
-
-@partial(jax.jit, static_argnames=("K", "interpret", "lanes"))
-def fused_pg_box_k_steps(Q, q, x, gamma, lo, hi, done_mask=None, K=8,
-                         interpret=False, lanes=None):
-    """Run K fused projected-gradient steps for the whole batch in one
-    kernel call; returns (x, res_inf_of_last_step).  Frozen lanes
-    (``done_mask`` 1.0) pass through; x (row view) aliases the output."""
-    B, n, _ = Q.shape
-    dtype = Q.dtype
-    L = auto_lanes(B, n * n * dtype.itemsize, lanes)
-    qrow = q.reshape(B, 1, n)
-    qcol = q.reshape(B, n, 1)
-    xrow = x.reshape(B, 1, n)
-    xcol = x.reshape(B, n, 1)
-    s3 = lambda v: v.reshape(B, 1, 1).astype(dtype)
-    if done_mask is None:
-        done_mask = jnp.zeros((B,), dtype)
-
-    vspec = lambda shape: pl.BlockSpec(
-        (L,) + shape, lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-    )
-    xo, res = pl.pallas_call(
-        _pg_k_steps_kernel(K),
-        grid=(B // L,),
-        in_specs=[
-            vspec((n, n)), vspec((1, n)), vspec((n, 1)), vspec((1, n)),
-            vspec((n, 1)), vspec((1, 1)), vspec((1, 1)), vspec((1, 1)),
-            vspec((1, 1)),
-        ],
-        out_specs=[vspec((1, n)), vspec((1, 1))],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, 1, n), dtype),
-            jax.ShapeDtypeStruct((B, 1, 1), dtype),
-        ],
-        input_output_aliases={3: 0},
-        cost_estimate=pl.CostEstimate(
-            flops=8 * K * B * n * n,
-            bytes_accessed=B * n * n * dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(Q, qrow, qcol, xrow, xcol, s3(gamma), s3(lo), s3(hi), s3(done_mask))
-    return xo.reshape(B, n), res.reshape(B)
-
-
-@partial(jax.jit, static_argnames=("maxit", "iter_block", "interpret"))
-def solve_box_qp_batch_blocked(Q, q, lo, hi, Lip, tol, maxit=10_000,
-                               iter_block=8, interpret=False, x0=None):
-    """Iteration-blocked batched projected gradient (Q read from HBM once
-    per ``iter_block`` iterations; stopping sampled at block boundaries —
-    counts are upper bounds, solutions at least as converged)."""
-    B, n, _ = Q.shape
-    dtype = Q.dtype
-    gamma = jnp.broadcast_to((0.95 / jnp.asarray(Lip)).astype(dtype), (B,))
-    lo_v = jnp.broadcast_to(jnp.asarray(lo, dtype), (B,))
-    hi_v = jnp.broadcast_to(jnp.asarray(hi, dtype), (B,))
-    K = iter_block
-
-    x0 = jnp.zeros((B, n), dtype) if x0 is None else \
-        jnp.asarray(x0, dtype).reshape(B, n)
-    z0, res0 = fused_pg_box_step(Q, q, x0, gamma, lo_v, hi_v,
-                                 interpret=interpret)
-    done0 = res0 / gamma <= tol
-    init = (jnp.asarray(1, jnp.int32), z0, done0, jnp.ones((B,), jnp.int32))
-
-    def cond(c):
-        return (c[0] < maxit) & jnp.logical_not(jnp.all(c[2]))
-
-    def body(c):
-        k, x, done, iters = c
-        xn, res = fused_pg_box_k_steps(Q, q, x, gamma, lo_v, hi_v,
-                                       done.astype(dtype), K=K,
-                                       interpret=interpret)
-        k = k + K
-        newly_done = res / gamma <= tol
-        iters = jnp.where(done, iters, k)
-        return (k, xn, done | newly_done, iters)
-
-    k, x, done, iters = jax.lax.while_loop(cond, body, init)
-    # K-blocked loop can overshoot maxit by up to K-1; clamp the report to
-    # the maxit contract (matching solve_box_qp_batch's exact cap).
-    iters = jnp.minimum(jnp.where(done, iters, k), maxit)
     return x, iters, done

@@ -1,23 +1,25 @@
-"""Fused Pallas TPU kernel for the batched lasso forward-backward step.
+"""Batched lasso FISTA: the fused GPU step kernel and the solvers around it.
 
 The hot op of the batched FB/FISTA solvers is, per problem lane i:
 
     z_i = soft_threshold(x_i - gamma_i * A_i^T (A_i x_i - b_i), gamma_i*lam_i)
     res_i = ||x_i - z_i||_inf
 
-XLA compiles the two matvecs as separate batched GEMVs, reading every A_i
-from HBM *twice* per iteration; since the step is memory-bound on A traffic
-(SURVEY.md §7 stage 7), that caps throughput at half the roofline.  This
-kernel performs the whole step in one pass: each grid step DMAs one lane's
-A_i into VMEM (Pallas double-buffers the stream across grid steps
-automatically), computes both contractions as VPU multiply-reduce in native
-float32 (full precision — no MXU bf16 passes, and no 127/128 column waste
-from matvec-shaped MXU calls), applies the prox, and emits the per-lane
-convergence residual.
+The plain XLA step (:func:`reference_fb_prox_grad`) runs it as two batched
+matvecs, so every A_i crosses device memory *twice* per iteration.  The step
+is bound by that traffic: at 0.5 flop per byte it gets nothing from tensor
+cores.  :func:`fused_fista_step` is one Pallas kernel (Triton route) that
+reads each A_i once: one program per lane walks the rows of A_i in
+``(block_rows, N_pad)`` tiles, forms ``r_tile = A_tile x - b_tile`` and
+accumulates ``grad += A_tile^T r_tile`` in registers, then applies the
+prox, the restart signal, the Nesterov extrapolation and the frozen-lane
+pass-through before it writes the carries back in place.  N is padded to a
+power of two in registers only (masked loads); device memory keeps the dense
+(B, M, N) array.  All arithmetic is float32 multiply-and-reduce on the CUDA
+cores, never a TF32 ``dot``.
 
-Layout: A_i is (M sublanes, N lanes); ``r = sum_N(A * x)`` is a lane
-reduction to (M, 1); ``grad = sum_M(A * r)`` is a sublane reduction to
-(1, N); everything else is elementwise on (1, N).
+:func:`lasso_step_route` decides, once per solve, which of the two steps a
+solver runs.
 """
 
 from __future__ import annotations
@@ -29,245 +31,227 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-from .common import auto_lanes
+from jax.experimental.pallas import triton as plgpu
 
 
-def _fb_step_kernel(with_shrink=False):
-    """Kernel factory; ``with_shrink=True`` adds a per-lane multiplicative
-    prox epilogue ``z *= shr`` — the elastic-net combined prox
-    ``soft_threshold(y, gamma*mu) / (1 + gamma*lam2)`` with
-    ``shr = 1/(1 + gamma*lam2)`` precomputed by the caller.  A separate
-    program variant (not a runtime 1.0-multiply) so the lasso path's
-    compiled program — whose counts the parity tests pin — is untouched."""
+def lasso_step_route(A, use_kernel=None, interpret=False):
+    """The FB step a distinct-A lasso solve runs: ``"kernel"`` or ``"xla"``.
 
-    def kernel(A_ref, b_ref, x_ref, gamma_ref, thr_ref, *rest):
-        if with_shrink:
-            shr_ref, z_ref, res_ref = rest
-        else:
-            z_ref, res_ref = rest
-        # L lanes per grid step amortize the fixed per-step cost (grid
-        # overhead and pipeline bubbles) over L problems; the per-lane body
-        # is 2-D (the layout Mosaic handles best), unrolled statically over
-        # the L dim
-        L = A_ref.shape[0]
-        for l in range(L):
-            # A may be stored narrower than the iterate (bf16 warm-start
-            # stage: half the HBM stream); compute always runs at the
-            # iterate precision
-            A = A_ref[l].astype(x_ref.dtype)   # (M, N) in VMEM
-            x = x_ref[l]          # (1, N)
-            b = b_ref[l]          # (M, 1)
-            gamma = gamma_ref[l, 0, 0]
-            thr = thr_ref[l, 0, 0]
-
-            r = jnp.sum(A * x, axis=1, keepdims=True) - b   # (M, 1) lane-reduce
-            grad = jnp.sum(A * r, axis=0, keepdims=True)    # (1, N) sublane-reduce
-            y = x - gamma * grad
-            absy = jnp.abs(y)
-            z = jnp.sign(y) * jnp.maximum(absy - thr, 0.0)
-            if with_shrink:
-                # DIVIDE by (1 + gamma*lam2): bit-matches ElasticNet.prox
-                # (multiply-by-reciprocal differs in the last ULP, which
-                # moves threshold crossings ~tens of iterations on the
-                # elastic net's flat residual tail — measured)
-                z = z / shr_ref[l, 0, 0]
-            z_ref[l] = z
-            res_ref[l] = jnp.max(jnp.abs(x - z)).reshape(1, 1)
-
-    return kernel
+    ``use_kernel=None`` picks the fused kernel for float32 operators on a
+    GPU (and for any operator when ``interpret=True``), the XLA step
+    otherwise.  ``use_kernel=True`` without ``interpret`` raises off a GPU
+    (the kernel is compiled for the card; the CPU runs it only in
+    interpret mode) and for non-float32 operators."""
+    dtype = jnp.dtype(A.dtype)
+    on_gpu = jax.default_backend() == "gpu"
+    if use_kernel is None:
+        use_kernel = interpret or (on_gpu and dtype == jnp.float32)
+    if not use_kernel:
+        return "xla"
+    if interpret:
+        return "kernel"
+    if not on_gpu:
+        raise ValueError(
+            "use_kernel=True needs a GPU (the fused step is compiled for "
+            f"the card; backend is {jax.default_backend()!r}); pass "
+            "interpret=True to run it in Pallas interpret mode"
+        )
+    if dtype != jnp.float32:
+        raise ValueError(f"the fused step is float32-only, got {dtype}")
+    return "kernel"
 
 
-@partial(jax.jit, static_argnames=("interpret", "lanes"))
-def fused_fb_prox_grad(A, b, x, gamma, thr, shrink=None, interpret=False,
-                       lanes=None):
-    """One fused FB step for a batch of lasso problems.
+def _kernel_config(B, M, N):
+    """(block_rows, num_warps, num_stages, splits) of :func:`fused_fista_step`
+    for a (B, M, N) operator: 32-row tiles of at most 16K elements, four
+    warps, two pipeline stages, and rows split across programs until the
+    grid has at least 256 programs (tuned on an H100 at 256x200x400 and
+    64x200x400, where 64 lanes run fastest with 4 splits)."""
+    n_pad = pl.next_power_of_2(N)
+    block_rows = max(1, min(32, 16384 // n_pad, pl.next_power_of_2(M)))
+    tiles = pl.cdiv(M, block_rows)
+    splits = max(1, min(tiles, 256 // B))
+    return block_rows, 4, 2, splits
+
+
+def _fista_epilogue(x, zp, grad, beta, gamma, thr, frozen, shrink, restart,
+                    rsum, rmax):
+    """Prox + restart + extrapolation + freeze of one FISTA iteration, for
+    the kernel (1-D lane vectors, scalar parameters, full reductions) and
+    for XLA (``(B, N)`` arrays, ``(B, 1)`` parameters, row reductions).
+
+    ``shrink`` (optional) is the elastic-net prox denominator
+    ``1 + gamma*lam2``: the soft threshold is DIVIDED by it, which
+    bit-matches ``ElasticNet.prox``.  ``rs = <x - z, z - z_prev>`` is the
+    O'Donoghue-Candès gradient-scheme restart signal; with ``restart`` a
+    triggering lane's extrapolation coefficient is zeroed for THIS step
+    (``accel.AdaptiveRestartSequence`` semantics).  Frozen lanes pass
+    their carries through and report ``res = rs = 0``."""
+    y = x - gamma * grad
+    z = jnp.sign(y) * jnp.maximum(jnp.abs(y) - thr, 0.0)
+    if shrink is not None:
+        z = z / shrink
+    rs = rsum((x - z) * (z - zp))
+    if restart:
+        beta = jnp.where(rs > 0, jnp.zeros_like(beta), beta)
+    x_new = z + beta * (z - zp)
+    res = rmax(jnp.abs(x - z))
+    zero = jnp.zeros_like(res)
+    return (jnp.where(frozen, x, x_new), jnp.where(frozen, zp, z),
+            jnp.where(frozen, zero, res), jnp.where(frozen, zero, rs))
+
+
+def _fista_kernel(A_ref, b_ref, x_ref, zp_ref, beta_ref, gamma_ref, thr_ref,
+                  done_ref, *rest, M, N, block_rows, splits, restart,
+                  with_shrink):
+    """One program per lane (and per row split when ``splits > 1``): a loop
+    over row tiles of A_i reads each tile once and accumulates the
+    gradient in registers.  With one split the program finishes the whole
+    iteration; with several it writes its partial gradient and the
+    epilogue runs in XLA."""
+    if with_shrink:
+        shr_ref, *outs = rest
+    else:
+        shr_ref, outs = None, rest
+    lane = pl.program_id(0)
+    n_pad = pl.next_power_of_2(N)
+    cmask = jnp.arange(n_pad) < N
+    # the row slice of a (B, N) array; an int32 start, like the lane index
+    cols = pl.ds(jnp.int32(0), n_pad)
+
+    def row_vec(ref):
+        return plgpu.load(ref.at[lane, cols], mask=cmask, other=0.0)
+
+    x = row_vec(x_ref)
+    tiles = pl.cdiv(M, block_rows)
+    if splits > 1:
+        tiles = pl.cdiv(tiles, splits)
+        row0 = pl.program_id(1) * tiles * block_rows
+    else:
+        row0 = 0
+
+    def tile(t, grad):
+        r0 = row0 + t * block_rows
+        rmask = r0 + jnp.arange(block_rows) < M
+        A = plgpu.load(
+            A_ref.at[lane, pl.ds(r0, block_rows), cols],
+            mask=rmask[:, None] & cmask[None, :], other=0.0,
+        ).astype(x.dtype)
+        b = plgpu.load(b_ref.at[lane, pl.ds(r0, block_rows)], mask=rmask,
+                       other=0.0)
+        r = jnp.sum(A * x[None, :], axis=1) - b
+        return grad + jnp.sum(A * r[:, None], axis=0)
+
+    grad = jax.lax.fori_loop(0, tiles, tile, jnp.zeros((n_pad,), x.dtype))
+    if splits > 1:
+        (g_ref,) = outs
+        plgpu.store(g_ref.at[lane, pl.program_id(1), cols], grad, mask=cmask)
+        return
+
+    xo_ref, zo_ref, res_ref, rs_ref = outs
+    x_new, z, res, rs = _fista_epilogue(
+        x, row_vec(zp_ref), grad, beta_ref[lane], gamma_ref[lane],
+        thr_ref[lane], done_ref[lane] > 0,
+        None if shr_ref is None else shr_ref[lane], restart,
+        jnp.sum, jnp.max,
+    )
+    plgpu.store(xo_ref.at[lane, cols], x_new, mask=cmask)
+    plgpu.store(zo_ref.at[lane, cols], z, mask=cmask)
+    res_ref[lane] = res
+    rs_ref[lane] = rs
+
+
+@partial(jax.jit, static_argnames=("restart", "interpret", "block_rows",
+                                   "num_warps", "num_stages", "splits"))
+def fused_fista_step(A, b, x, z_prev, beta, gamma, thr, done, shrink=None,
+                     restart=False, interpret=False, block_rows=None,
+                     num_warps=None, num_stages=None, splits=None):
+    """One complete FISTA iteration for the batch in one pass over A.
 
     Args:
-      A: (B, M, N) stacked operators.
-      b: (B, M) stacked offsets.
-      x: (B, N) current iterates.
-      gamma: (B,) per-lane stepsizes.
-      thr: (B,) per-lane soft-threshold levels (gamma * lam).
-      shrink: optional (B,) per-lane prox-epilogue DENOMINATOR
-        (elastic net: ``1 + gamma * lam2``; the kernel divides —
-        bit-matching ``ElasticNet.prox``); None = plain lasso program
-        (separate compiled variant, parity-pinned).
-      interpret: run in interpreter mode (for CPU tests).
-      lanes: problems per grid step (amortizes per-step overhead; VMEM use
-        is ~2 * lanes * M * N * 4 bytes with double buffering).  Default:
-        largest of {8, 4, 2, 1} that divides B and fits ~8 MB.
+      A: (B, M, N) stacked operators (float32, or narrower storage such as
+        bfloat16 that the kernel widens on load).
+      b: (B, M) offsets.  x, z_prev: (B, N) extrapolated point and previous
+        prox point; both are aliased to the outputs, so a ``while_loop``
+        carry is updated in place.
+      beta, gamma, thr, done: (B,) extrapolation coefficient, stepsize,
+        threshold ``gamma * lam`` and frozen-lane mask (nonzero = frozen).
+      shrink: optional (B,) elastic-net prox denominator ``1 + gamma*lam2``.
+      restart: zero the extrapolation of lanes whose restart signal fires.
+      interpret: run in Pallas interpret mode (CPU tests).
+      block_rows, num_warps, num_stages, splits: tuning overrides (rows per
+        tile, Triton warps and pipeline stages, programs per lane); default
+        from :func:`_kernel_config`.
 
-    Returns:
-      z: (B, N) prox points; res_inf: (B,) ||x - z||_inf per lane.
+    Returns ``(x_new, z, res_inf, restart_sig)``; frozen lanes pass their
+    carries through with ``res_inf = restart_sig = 0``.  The plain FB step
+    is this call with ``beta = 0``, ``z_prev = x`` and no frozen lane.
     """
     B, M, N = A.shape
     dtype = x.dtype
-    L = auto_lanes(B, M * N * A.dtype.itemsize, lanes)
-    b3 = b.reshape(B, M, 1)
-    # TPU lowering requires the last two block dims to divide (8, 128) or
-    # equal the array dims — so vectors ride as (B, 1, N) with (L, 1, N)
-    # blocks rather than (B, N) with (L, N) blocks.
-    x3 = x.reshape(B, 1, N)
-    gamma2 = gamma.reshape(B, 1, 1).astype(dtype)
-    thr2 = thr.reshape(B, 1, 1).astype(dtype)
-    with_shrink = shrink is not None
-    sspec = pl.BlockSpec((L, 1, 1), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM)
-    operands = [A, b3, x3, gamma2, thr2]
-    in_specs = [
-        pl.BlockSpec((L, M, N), lambda i: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((L, M, 1), lambda i: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((L, 1, N), lambda i: (i, 0, 0),
-                     memory_space=pltpu.VMEM),
-        sspec,
-        sspec,
-    ]
-    if with_shrink:
-        operands.append(shrink.reshape(B, 1, 1).astype(dtype))
-        in_specs.append(sspec)
-
-    z, res = pl.pallas_call(
-        _fb_step_kernel(with_shrink=with_shrink),
-        grid=(B // L,),
-        in_specs=in_specs,
-        out_specs=[
-            pl.BlockSpec((L, 1, N), lambda i: (i, 0, 0),
-                         memory_space=pltpu.VMEM),
-            sspec,
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, 1, N), dtype),
-            jax.ShapeDtypeStruct((B, 1, 1), dtype),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=4 * B * M * N,
-            bytes_accessed=B * M * N * A.dtype.itemsize + 3 * B * N * dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(*operands)
-    return z.reshape(B, N), res.reshape(B)
-
-
-def _fista_full_step_kernel(restart=False, with_shrink=False):
-    """One complete FISTA iteration per lane: FB step + prox + Nesterov
-    extrapolation + converged-lane freeze + residual read-out, all in VMEM.
-
-    The per-trip XLA epilogue of :func:`solve_lasso_batch` (two (B, N)
-    where-selects, the extrapolation axpys, and two fresh HBM buffers per
-    trip) moves in here; with ``input_output_aliases`` the x/z_prev carry
-    buffers are updated in place, so the loop body is ONE aliased
-    pallas_call plus (B,)-scalar bookkeeping.
-
-    ``rs_ref`` emits the O'Donoghue-Candès gradient-scheme restart signal
-    per lane, ``<x - z, z - z_prev> > 0`` (momentum points against the
-    gradient mapping) — a (1, N) reduction on values already in VMEM.
-    With ``restart=True`` the kernel also *acts* on it immediately: the
-    triggering lane's extrapolation uses beta = 0 (the paper's semantic —
-    the reset kills THIS step's momentum, matching
-    ``accel.AdaptiveRestartSequence``, which resets the sequence state
-    before the coefficient is drawn); the caller resets the lane's t
-    carry from the emitted signal."""
-
-    def kernel(A_ref, b_ref, x_ref, zp_ref, beta_ref, gamma_ref, thr_ref,
-               done_ref, *rest):
-        if with_shrink:
-            shr_ref, xo_ref, zo_ref, res_ref, rs_ref = rest
-        else:
-            xo_ref, zo_ref, res_ref, rs_ref = rest
-        L = A_ref.shape[0]
-        for l in range(L):
-            A = A_ref[l].astype(x_ref.dtype)  # (M, N); bf16-A casts up
-            x = x_ref[l]            # (1, N)
-            zp = zp_ref[l]          # (1, N)
-            bcol = b_ref[l]         # (M, 1)
-            beta = beta_ref[l, 0, 0]
-            gamma = gamma_ref[l, 0, 0]
-            thr = thr_ref[l, 0, 0]
-            dm = done_ref[l, 0, 0]  # 1.0 = frozen lane
-
-            r = jnp.sum(A * x, axis=1, keepdims=True) - bcol
-            grad = jnp.sum(A * r, axis=0, keepdims=True)
-            y = x - gamma * grad
-            z = jnp.sign(y) * jnp.maximum(jnp.abs(y) - thr, 0.0)
-            if with_shrink:
-                # divide, not multiply-by-reciprocal (see _fb_step_kernel)
-                z = z / shr_ref[l, 0, 0]
-            rs = jnp.sum((x - z) * (z - zp))
-            if restart:
-                beta = jnp.where(rs > 0, jnp.zeros_like(beta), beta)
-            x_new = z + beta * (z - zp)
-            # frozen lanes keep their carry (the aliased buffers must
-            # still be written: the VMEM output window is distinct from
-            # the input's)
-            xo_ref[l] = dm * x + (1 - dm) * x_new
-            zo_ref[l] = dm * zp + (1 - dm) * z
-            res_ref[l] = ((1 - dm) * jnp.max(jnp.abs(x - z))).reshape(1, 1)
-            rs_ref[l] = ((1 - dm) * rs).reshape(1, 1)
-
-    return kernel
-
-
-@partial(jax.jit, static_argnames=("interpret", "lanes", "restart"))
-def fused_fista_full_step(A, b, x, z_prev, beta, gamma, thr, done_mask,
-                          shrink=None, interpret=False, lanes=None,
-                          restart=False):
-    """One full FISTA iteration for the batch (see the kernel docstring).
-
-    ``x`` and ``z_prev`` are aliased to the outputs — inside a
-    ``while_loop`` the carry is updated in place with no fresh HBM
-    allocation.  Returns (x_new, z_new, res_inf, restart_sig) with
-    res_inf = 0 and restart_sig = 0 for frozen lanes; restart_sig > 0 is
-    the per-lane adaptive-restart signal (see kernel docstring).  With
-    ``restart=True`` the triggering lane's extrapolation is zeroed
-    in-kernel (immediate restart); the caller resets its t carry."""
-    B, M, N = A.shape
-    dtype = x.dtype
-    L = auto_lanes(B, M * N * A.dtype.itemsize, lanes)
-    b3 = b.reshape(B, M, 1)
-    x3 = x.reshape(B, 1, N)
-    zp3 = z_prev.reshape(B, 1, N)
-    s3 = lambda v: v.reshape(B, 1, 1).astype(dtype)
-    vspec = lambda shape: pl.BlockSpec(
-        (L,) + shape, lambda i: (i, 0, 0), memory_space=pltpu.VMEM
+    cfg = _kernel_config(B, M, N)
+    block_rows = block_rows or cfg[0]
+    num_warps = num_warps or cfg[1]
+    num_stages = num_stages or cfg[2]
+    splits = splits or cfg[3]
+    vec = lambda v: jnp.broadcast_to(jnp.asarray(v, dtype), (B,))
+    operands = [A, b.astype(dtype), x, z_prev, vec(beta), vec(gamma),
+                vec(thr), vec(done)]
+    if shrink is not None:
+        operands.append(vec(shrink))
+    kernel = partial(_fista_kernel, M=M, N=N, block_rows=block_rows,
+                     splits=splits, restart=restart,
+                     with_shrink=shrink is not None)
+    params = plgpu.CompilerParams(num_warps=num_warps, num_stages=num_stages)
+    cost = pl.CostEstimate(
+        flops=4 * B * M * N, transcendentals=0,
+        bytes_accessed=B * M * N * A.dtype.itemsize
+        + (B * M + 5 * B * N) * dtype.itemsize,
     )
-    with_shrink = shrink is not None
-    operands = [A, b3, x3, zp3, s3(beta), s3(gamma), s3(thr),
-                s3(done_mask)]
-    in_specs = [
-        vspec((M, N)), vspec((M, 1)), vspec((1, N)), vspec((1, N)),
-        vspec((1, 1)), vspec((1, 1)), vspec((1, 1)), vspec((1, 1)),
-    ]
-    if with_shrink:
-        operands.append(s3(shrink))
-        in_specs.append(vspec((1, 1)))
-
-    xo, zo, res, rs = pl.pallas_call(
-        _fista_full_step_kernel(restart=restart, with_shrink=with_shrink),
-        grid=(B // L,),
-        in_specs=in_specs,
-        out_specs=[vspec((1, N)), vspec((1, N)), vspec((1, 1)),
-                   vspec((1, 1))],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, 1, N), dtype),
-            jax.ShapeDtypeStruct((B, 1, N), dtype),
-            jax.ShapeDtypeStruct((B, 1, 1), dtype),
-            jax.ShapeDtypeStruct((B, 1, 1), dtype),
-        ],
+    if splits > 1:
+        partial_grads = pl.pallas_call(
+            kernel, grid=(B, splits),
+            out_shape=jax.ShapeDtypeStruct((B, splits, N), dtype),
+            backend="triton", compiler_params=params, cost_estimate=cost,
+            interpret=interpret, name="fista_grad",
+        )(*operands)
+        return _xla_epilogue(x, z_prev, jnp.sum(partial_grads, axis=1),
+                             *operands[4:8], shrink=shrink, restart=restart)
+    return tuple(pl.pallas_call(
+        kernel, grid=(B,),
+        out_shape=[jax.ShapeDtypeStruct((B, N), dtype),
+                   jax.ShapeDtypeStruct((B, N), dtype),
+                   jax.ShapeDtypeStruct((B,), dtype),
+                   jax.ShapeDtypeStruct((B,), dtype)],
         input_output_aliases={2: 0, 3: 1},
-        cost_estimate=pl.CostEstimate(
-            flops=4 * B * M * N,
-            bytes_accessed=B * M * N * A.dtype.itemsize + 5 * B * N * dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(*operands)
-    return (xo.reshape(B, N), zo.reshape(B, N), res.reshape(B),
-            rs.reshape(B))
+        backend="triton", compiler_params=params, cost_estimate=cost,
+        interpret=interpret, name="fista_step",
+    )(*operands))
+
+
+def _xla_epilogue(x, zp, grad, beta, gamma, thr, done, shrink=None,
+                  restart=False):
+    """:func:`_fista_epilogue` on (B, N) arrays with (B,) parameters."""
+    B = x.shape[0]
+    col = lambda v: None if v is None else jnp.broadcast_to(
+        jnp.asarray(v, x.dtype), (B,))[:, None]
+    x_new, z, res, rs = _fista_epilogue(
+        x, zp, grad, col(beta), col(gamma), col(thr), col(done) > 0,
+        col(shrink), restart, partial(jnp.sum, axis=1, keepdims=True),
+        partial(jnp.max, axis=1, keepdims=True),
+    )
+    return x_new, z, res[:, 0], rs[:, 0]
+
+
+def xla_fista_step(A, b, x, z_prev, beta, gamma, thr, done, shrink=None,
+                   restart=False):
+    """The plain XLA counterpart of :func:`fused_fista_step` (same
+    arguments and results): two batched matvecs, so A is read twice."""
+    hi = jax.lax.Precision.HIGHEST
+    r = jnp.einsum("bmn,bn->bm", A, x, precision=hi) - b
+    grad = jnp.einsum("bmn,bm->bn", A, r, precision=hi)
+    return _xla_epilogue(x, z_prev, grad, beta, gamma, thr, done,
+                         shrink=shrink, restart=restart)
 
 
 def reference_fb_prox_grad(A, b, x, gamma, thr, shrink=None):
@@ -285,13 +269,34 @@ def reference_fb_prox_grad(A, b, x, gamma, thr, shrink=None):
     return z, jnp.max(jnp.abs(x - z), axis=1)
 
 
+def fused_fb_prox_grad(A, b, x, gamma, thr, shrink=None, interpret=False):
+    """One fused FB step ``(z, res_inf)``: :func:`fused_fista_step` with
+    ``beta = 0``, ``z_prev = x`` and no frozen lane."""
+    _, z, res, _ = fused_fista_step(A, b, x, x, 0.0, gamma, thr, 0.0,
+                                    shrink, interpret=interpret)
+    return z, res
+
+
+def _fb_step(route, interpret):
+    """``(A, b, x, gamma, thr, shrink=None) -> (z, res)`` on ``route``."""
+    if route == "kernel":
+        return partial(fused_fb_prox_grad, interpret=interpret)
+    return reference_fb_prox_grad
+
+
+def _full_step(route, interpret):
+    """One full FISTA iteration (:func:`fused_fista_step`'s signature) on
+    ``route``."""
+    if route == "kernel":
+        return partial(fused_fista_step, interpret=interpret)
+    return xla_fista_step
+
+
 def _mf_beta_pair(gamma, mf, dtype):
     """Per-lane (beta1, beta_const) for the strongly-convex (mf>0) FISTA
     variant, drawn with the SAME sequence ops as the generic driver's
     ``AdaptiveNesterovSequence`` (bit-faithful: f32 rounds step 1
-    differently from steps 2+, hence the pair).  Shared by
-    :func:`solve_lasso_batch` and :func:`_solve_packed_core` so the
-    count-parity contract between them cannot drift."""
+    differently from steps 2+, hence the pair)."""
     from ..accel.nesterov import AdaptiveNesterovSequence
 
     seq = AdaptiveNesterovSequence(m=float(mf))
@@ -330,23 +335,28 @@ def _validate_step_mult(step_mult, restart, mf):
                      "step_mult", "stall_patience"),
 )
 def solve_lasso_batch(
-    A, b, lam, Lf, tol, maxit=1000, use_kernel=True, interpret=False,
+    A, b, lam, Lf, tol, maxit=1000, use_kernel=None, interpret=False,
     restart=False, x0=None, mf=None, step_mult=1.0, stall_patience=100,
     lam2=None,
 ):
-    """Batched FISTA lasso/elastic-net solver with the fused Pallas step.
+    """Batched FISTA lasso/elastic-net solver over distinct operators
+    A (B, M, N).
+
+    ``use_kernel`` chooses the FB step through :func:`lasso_step_route`:
+    ``None`` (default) runs the fused kernel for float32 operators on a
+    GPU and the XLA step otherwise; ``True`` demands the kernel (compiled
+    on a GPU, or in Pallas interpret mode with ``interpret=True``);
+    ``False`` forces the XLA step.
 
     ``lam2`` (scalar or (B,), optional) adds the ridge term
     ``lam2/2 ||x||^2`` to the regularizer — the elastic net of the
     reference's second problem family (`test_elasticnet.jl`).  Its
-    combined prox is the soft threshold followed by a per-lane
-    multiplicative shrink ``1/(1 + gamma*lam2)``, which rides the fused
-    kernel as one extra scalar operand (a separate compiled variant so
-    the lasso program is untouched).  ``Lf`` stays the least-squares
-    smoothness constant (the ridge enters through the prox).  Composes
-    with ``restart``; not supported with ``mf``/``step_mult`` (the
-    strongly-convex coefficient and over-relaxation analyses were only
-    validated for the pure-l1 prox).
+    combined prox is the soft threshold followed by a per-lane divide by
+    ``1 + gamma*lam2``, one extra scalar operand of the step.  ``Lf``
+    stays the least-squares smoothness constant (the ridge enters through
+    the prox).  Composes with ``restart``; not supported with
+    ``mf``/``step_mult`` (the strongly-convex coefficient and
+    over-relaxation analyses were only validated for the pure-l1 prox).
 
     Per-lane convergence freezing matches
     :func:`proxtpu.parallel.batch.batched_run_loop` semantics: converged
@@ -363,7 +373,7 @@ def solve_lasso_batch(
     ``mf`` (static Python float > 0) runs the strongly-convex FISTA
     variant: under the fixed stepsize the generic driver's
     ``AdaptiveNesterovSequence(m=mf)`` coefficient is constant, so the
-    kernel draws the per-lane (beta1, beta_rest) pair by running the SAME
+    solver draws the per-lane (beta1, beta_rest) pair by running the SAME
     sequence ops (bit-faithful to the driver — f32 rounds step 1
     differently from steps 2+, hence the pair) and skips the t-recursion.
     Mutually exclusive with ``restart`` (resetting a constant sequence is
@@ -373,29 +383,27 @@ def solve_lasso_batch(
     stepsize to ``gamma = step_mult / Lf``.  Forward-backward on the
     least-squares term converges for any gamma < 2/L, and on sparse
     solutions the momentum+restart combination at gamma ~ 1.5/L cuts
-    MEAN iteration counts 15-25% (measured: 164 -> 141 on the flagship
-    256x200x400 batch).  The stopping rule becomes the CANONICAL
-    criterion ``||x - z||_inf * Lf <= tol``, which (a) equals the
-    textbook ``||res||_inf / gamma <= tol`` when step_mult == 1 and (b)
-    certifies it at gamma > 1/L via the gradient-mapping monotonicity
-    lemma ``gamma1 ||G_gamma1|| <= gamma2 ||G_gamma2||`` for gamma1 <=
-    gamma2 (Beck, First-Order Methods, Thm 10.9) — returned solutions
-    satisfy the same criterion as step_mult=1 solves.  Requires
-    ``restart=True``: without the restart the momentum diverges
-    (measured).  SAFEGUARD: over-relaxation is only stable when the
-    active-set-reduced problem is well conditioned (measured: at lam =
-    0.02 lam_max, gamma = 1.5/L DIVERGES — crit reaches 1e29 within 250
-    iterations — on ~45% of instances), so each lane watches for runaway
-    (crit > 10x its best) or ``stall_patience`` consecutive
+    MEAN iteration counts 15-25% on the flagship 256x200x400 batch.  The
+    stopping rule becomes the CANONICAL criterion
+    ``||x - z||_inf * Lf <= tol``, which (a) equals the textbook
+    ``||res||_inf / gamma <= tol`` when step_mult == 1 and (b) certifies
+    it at gamma > 1/L via the gradient-mapping monotonicity lemma
+    ``gamma1 ||G_gamma1|| <= gamma2 ||G_gamma2||`` for gamma1 <= gamma2
+    (Beck, First-Order Methods, Thm 10.9) — returned solutions satisfy
+    the same criterion as step_mult=1 solves.  Requires ``restart=True``:
+    without the restart the momentum diverges.  SAFEGUARD: over-relaxation
+    is only stable when the active-set-reduced problem is well conditioned
+    (at lam = 0.02 lam_max, gamma = 1.5/L DIVERGES — crit reaches 1e29
+    within 250 iterations — on ~45% of instances), so each lane watches
+    for runaway (crit > 10x its best) or ``stall_patience`` consecutive
     non-improving iterations and then cold-restarts the TEXTBOOK solve
     (canonical gamma, fresh momentum, iterate back to x0); worst-case
-    lane cost = textbook + detection (~5-25% measured).  WHEN TO USE:
-    batched WALL time is governed by the slowest lane, so on large
-    batches one safeguard-triggering lane erases the mean win (measured
-    at the flagship batch: max lane 285 -> 367, wall 0.8-1.2x — NOT an
-    improvement; BASELINE.md round-5 study), while well-conditioned
-    batches (M/N >~ 1/2 at moderate aspect) win uniformly.  Off by
-    default; the textbook path is untouched when step_mult == 1.
+    lane cost = textbook + detection (~5-25%).  WHEN TO USE: batched wall
+    time is governed by the slowest lane, so on large batches one
+    safeguard-triggering lane erases the mean win (flagship batch: max
+    lane 285 -> 367), while well-conditioned batches (M/N >~ 1/2 at
+    moderate aspect) win uniformly.  Off by default; the textbook path is
+    untouched when step_mult == 1.
     """
     B, M, N = A.shape
     dtype = A.dtype
@@ -405,32 +413,27 @@ def solve_lasso_batch(
             "lam2 (elastic net) composes with restart only; the mf and "
             "step_mult analyses were validated for the pure-l1 prox"
         )
-    gamma0 = (1.0 / Lf).astype(dtype)           # canonical 1/L (criterion)
-    gamma = (step_mult / Lf).astype(dtype)      # step
-    thr = (gamma * lam).astype(dtype)
-    shrink = None if lam2 is None else (
-        1.0 + gamma * jnp.broadcast_to(jnp.asarray(lam2, dtype), (B,))
-    ).astype(dtype)
     if mf is not None and restart:
         raise ValueError(
             "restart needs the t-recursion; mf>0 uses a constant "
             "extrapolation coefficient (restart would be a no-op)"
         )
+    route = lasso_step_route(A, use_kernel, interpret)
+    vec = lambda v: jnp.broadcast_to(jnp.asarray(v, dtype), (B,))
+    gamma0 = vec(1.0 / Lf)                      # canonical 1/L (criterion)
+    gamma = vec(step_mult / Lf)                 # step
+    thr = (gamma * lam).astype(dtype)
+    shrink = None if lam2 is None else (1.0 + gamma * vec(lam2)).astype(dtype)
     if step_mult != 1.0:
         return _solve_lasso_batch_overrelaxed(
             A, b, jnp.asarray(lam), gamma0, gamma, tol, maxit=maxit,
-            use_kernel=use_kernel, interpret=interpret, x0=x0,
+            route=route, interpret=interpret, x0=x0,
             stall_patience=stall_patience,
         )
-    step_fn = (
-        partial(fused_fb_prox_grad, interpret=interpret)
-        if use_kernel
-        else reference_fb_prox_grad
-    )
 
     x0 = jnp.zeros((B, N), dtype) if x0 is None else \
         jnp.asarray(x0, dtype).reshape(B, N)
-    z0, res0 = step_fn(A, b, x0, gamma, thr, shrink)
+    z0, res0 = _fb_step(route, interpret)(A, b, x0, gamma, thr, shrink)
     # state: (k, x, z_prev, t, done, iters); the init FB step counts as
     # iteration 1.  The first extrapolation coefficient is beta = 0 (t=1),
     # so the next point is z0 itself: carry x = z0 with the t-sequence
@@ -459,7 +462,7 @@ def solve_lasso_batch(
         k, done = c[0], c[4]
         return (k < maxit) & jnp.logical_not(jnp.all(done))
 
-    body = _make_fista_body(A, b, gamma, thr, tol, use_kernel=use_kernel,
+    body = _make_fista_body(A, b, gamma, thr, tol, route=route,
                             interpret=interpret, restart=restart,
                             beta_const=beta_const, shrink=shrink)
     k, x, z, t, done, iters = jax.lax.while_loop(cond, body, init)
@@ -467,111 +470,63 @@ def solve_lasso_batch(
     return z, iters, done
 
 
-def _make_fista_body(A, b, gamma, thr, tol, *, use_kernel, interpret,
-                     restart, beta_const=None, shrink=None):
+def _make_fista_body(A, b, gamma, thr, tol, *, route, interpret, restart,
+                     beta_const=None, shrink=None):
     """The one-iteration while-loop body over the carry
     ``(k, x, z_prev, t, done, iters)`` — shared by :func:`solve_lasso_batch`
     and the compacting driver so the trajectories are bit-identical.
     ``beta_const`` ((B,) array) replaces the t-recursion with a constant
     per-lane extrapolation coefficient (the strongly-convex mf>0 path)."""
     dtype = A.dtype
+    step = _full_step(route, interpret)
 
-    if use_kernel:
-        # full-iteration kernel: FB step + extrapolation + freeze live in
-        # VMEM, the x/z_prev carries are aliased in place, and the body's
-        # XLA epilogue is (B,)-scalar bookkeeping only
-        def body(c):
-            k, x, z_prev, t, done, iters = c
-            if beta_const is not None:
-                beta, t_new = beta_const, t
-            else:
-                t_new = (1 + jnp.sqrt(1 + 4 * t * t)) / 2
-                beta = (t - 1) / t_new
-            x_new, z, res, rs = fused_fista_full_step(
-                A, b, x, z_prev, beta, gamma, thr, done.astype(dtype),
-                shrink, interpret=interpret, restart=restart,
-            )
-            if restart:
-                # immediate (paper) semantic, matching
-                # accel.AdaptiveRestartSequence: the kernel zeroed the
-                # triggering lane's beta for THIS extrapolation (t reset
-                # to 1 before the coefficient), so its carry advances
-                # from 1 -> (1+sqrt(5))/2
-                phi = jnp.asarray((1 + jnp.sqrt(5.0)) / 2, t_new.dtype)
-                t_new = jnp.where(rs > 0, phi, t_new)
-            newly_done = res / gamma <= tol
-            k = k + 1
-            iters = jnp.where(done, iters, k)
-            return (k, x_new, z, jnp.where(done, t, t_new),
-                    done | newly_done, iters)
-    else:
-        def body(c):
-            k, x, z_prev, t, done, iters = c
-            # FB step at the current extrapolated point, then Nesterov
-            # extrapolation with the simple t-sequence (or the constant
-            # strongly-convex coefficient)
-            z, res = reference_fb_prox_grad(A, b, x, gamma, thr, shrink)
-            if restart:
-                # immediate restart: reset t BEFORE drawing the
-                # coefficient (= AdaptiveRestartSequence semantics)
-                rs = jnp.sum((x - z) * (z - z_prev), axis=1)
-                t = jnp.where(rs > 0, jnp.ones_like(t), t)
-            if beta_const is not None:
-                beta, t_new = beta_const[:, None], t
-            else:
-                t_new = (1 + jnp.sqrt(1 + 4 * t * t)) / 2
-                beta = ((t - 1) / t_new)[:, None]
-            x_new = z + beta * (z - z_prev)
-            newly_done = res / gamma <= tol
-            keep = done[:, None]
-            x_new = jnp.where(keep, x, x_new)
-            z = jnp.where(keep, z_prev, z)
-            k = k + 1
-            iters = jnp.where(done, iters, k)
-            return (k, x_new, z, jnp.where(done, t, t_new),
-                    done | newly_done, iters)
+    def body(c):
+        k, x, z_prev, t, done, iters = c
+        if beta_const is not None:
+            beta, t_new = beta_const, t
+        else:
+            t_new = (1 + jnp.sqrt(1 + 4 * t * t)) / 2
+            beta = (t - 1) / t_new
+        x_new, z, res, rs = step(A, b, x, z_prev, beta, gamma, thr,
+                                 done.astype(dtype), shrink, restart=restart)
+        if restart:
+            # immediate (paper) semantic, matching
+            # accel.AdaptiveRestartSequence: the step zeroed the
+            # triggering lane's beta for THIS extrapolation (t reset to 1
+            # before the coefficient), so its carry advances from
+            # 1 -> (1+sqrt(5))/2
+            phi = (1 + jnp.sqrt(jnp.full_like(t_new, 5.0))) / 2
+            t_new = jnp.where(rs > 0, phi, t_new)
+        newly_done = res / gamma <= tol
+        k = k + 1
+        iters = jnp.where(done, iters, k)
+        return (k, x_new, z, jnp.where(done, t, t_new),
+                done | newly_done, iters)
 
     return body
 
 
 def _solve_lasso_batch_overrelaxed(
-    A, b, lam, gamma0, gamma_init, tol, *, maxit, use_kernel, interpret,
-    x0, stall_patience,
+    A, b, lam, gamma0, gamma_init, tol, *, maxit, route, interpret, x0,
+    stall_patience,
 ):
     """Over-relaxed restart-FISTA with the per-lane stall safeguard (see
     :func:`solve_lasso_batch` ``step_mult`` docs).  The per-lane gamma
     lives in the while-loop carry so a stalling lane can fall back to the
-    canonical 1/Lf mid-solve; the kernels already take per-lane
-    gamma/thr as per-call operands, so the kernel code is unchanged."""
+    canonical 1/Lf mid-solve; the step takes per-lane gamma/thr as
+    per-call operands."""
     B, M, N = A.shape
     dtype = A.dtype
-    step_fn = (
-        partial(fused_fb_prox_grad, interpret=interpret)
-        if use_kernel
-        else reference_fb_prox_grad
-    )
-    if use_kernel:
-        full_step = lambda x, zp, beta, gam, dm: fused_fista_full_step(
-            A, b, x, zp, beta, gam, (gam * lam).astype(dtype), dm,
-            interpret=interpret, restart=True,
-        )
-    else:
-        def full_step(x, zp, beta, gam, dm):
-            z, res = reference_fb_prox_grad(
-                A, b, x, gam, (gam * lam).astype(dtype)
-            )
-            rs = jnp.sum((x - z) * (z - zp), axis=1)
-            beta = jnp.where(rs > 0, jnp.zeros_like(beta), beta)
-            x_new = z + beta[:, None] * (z - zp)
-            keep = dm[:, None] > 0
-            return (jnp.where(keep, x, x_new), jnp.where(keep, zp, z),
-                    jnp.where(dm > 0, 0.0, res).astype(dtype),
-                    jnp.where(dm > 0, 0.0, rs).astype(dtype))
+    step = _full_step(route, interpret)
+
+    def full_step(x, zp, beta, gam, dm):
+        return step(A, b, x, zp, beta, gam, (gam * lam).astype(dtype), dm,
+                    restart=True)
 
     x0 = jnp.zeros((B, N), dtype) if x0 is None else \
         jnp.asarray(x0, dtype).reshape(B, N)
-    z0, res0 = step_fn(A, b, x0, gamma_init,
-                       (gamma_init * lam).astype(dtype))
+    z0, res0 = _fb_step(route, interpret)(A, b, x0, gamma_init,
+                                          (gamma_init * lam).astype(dtype))
     crit0 = res0 / gamma0
     done0 = crit0 <= tol
     t1 = jnp.ones((B,), dtype)
@@ -599,7 +554,7 @@ def _solve_lasso_batch_overrelaxed(
         crit = res / gamma0              # canonical ||G_{1/L}|| certificate
         newly_done = crit <= tol
         # Stall/runaway safeguard.  An over-relaxed lane fails by
-        # DIVERGING (measured: crit reaches 1e29 within 250 iterations at
+        # DIVERGING (crit reaches 1e29 within 250 iterations at
         # lam = 0.02 lam_max — not a bounded limit cycle), so two
         # triggers: `runaway` (crit blew 10x past the best seen — fires
         # within ~20 iterations of the instability) and `stall_patience`
@@ -608,9 +563,9 @@ def _solve_lasso_batch_overrelaxed(
         # counter).  A triggered lane COLD-RESTARTS the textbook solve:
         # canonical gamma, fresh momentum, iterate back to x0 (the
         # diverged iterate is garbage — converging from it costs ~10x
-        # more than restarting, measured).  `gam > gamma0` makes the
-        # trigger one-shot; crit is gamma-independent so `best` stays
-        # comparable across the backoff.
+        # more than restarting).  `gam > gamma0` makes the trigger
+        # one-shot; crit is gamma-independent so `best` stays comparable
+        # across the backoff.
         improved = crit < best * 0.999
         runaway = crit > best * 10.0
         best = jnp.where((~done) & improved, crit, best)
@@ -633,9 +588,9 @@ def _solve_lasso_batch_overrelaxed(
     return z, iters, done
 
 
-@partial(jax.jit, static_argnames=("use_kernel", "interpret", "restart"))
+@partial(jax.jit, static_argnames=("route", "interpret", "restart"))
 def _fista_segment(A, b, gamma, thr, tol, k, x, z_prev, t, done, iters,
-                   k_end, use_kernel=True, interpret=False, restart=False):
+                   k_end, route="xla", interpret=False, restart=False):
     """Run FISTA from an arbitrary carry until ``k == k_end`` or all lanes
     converge; the compacting driver's inner compiled program (one compile
     per distinct batch size)."""
@@ -643,31 +598,29 @@ def _fista_segment(A, b, gamma, thr, tol, k, x, z_prev, t, done, iters,
     def cond(c):
         return (c[0] < k_end) & jnp.logical_not(jnp.all(c[4]))
 
-    body = _make_fista_body(A, b, gamma, thr, tol, use_kernel=use_kernel,
+    body = _make_fista_body(A, b, gamma, thr, tol, route=route,
                             interpret=interpret, restart=restart)
     return jax.lax.while_loop(cond, body, (k, x, z_prev, t, done, iters))
 
 
 def solve_lasso_batch_compacting(
-    A, b, lam, Lf, tol, maxit=1000, use_kernel=True, interpret=False,
+    A, b, lam, Lf, tol, maxit=1000, use_kernel=None, interpret=False,
     restart=False, segment=64, min_batch=32, x0=None,
 ):
     """Batched FISTA with convergence-tail lane compaction.
 
     Identical per-lane trajectory, stopping rule and iteration counts as
     :func:`solve_lasso_batch` (the loop body is shared): bit-identical on
-    the kernel path (per-lane VMEM reductions are batch-size invariant);
-    on the XLA path solutions can differ in the last f32 ULP because the
-    batched einsum's reduction tiling depends on the batch size.  The
-    difference is otherwise pure *scheduling*: every ``segment``
-    iterations the per-lane ``done`` flags
+    the kernel path (each lane's reductions run in its own program, so
+    they do not depend on the batch size); on the XLA path solutions can
+    differ in the last f32 ULP because the batched einsum's reduction
+    tiling depends on the batch size.  The difference is otherwise pure
+    *scheduling*: every ``segment`` iterations the per-lane ``done`` flags
     are pulled to the host, and once at most half the lanes remain active
     the batch is gathered down to the next power of two — so the
     convergence tail streams only the unconverged lanes' operators instead
-    of re-reading the full batch every iteration.  Measured per-iteration
-    cost at the flagship 200×400 shape: 298 µs at B=256 → 208 at 128 →
-    169 at 64 (the ~170 µs trip quantum floors it below B=64, hence
-    ``min_batch``).
+    of re-reading the full batch every iteration (``min_batch`` bounds the
+    shrink, below which the per-trip fixed cost dominates).
 
     This is a host-side driver (a Python loop around one jitted segment
     program per live batch size, ≤ log2(B/min_batch)+1 compiles) — it
@@ -676,25 +629,21 @@ def solve_lasso_batch_compacting(
     for a handful of stragglers); for tight spreads the host syncs buy
     nothing and :func:`solve_lasso_batch` is preferable.
 
-    TPU-extra: no reference counterpart (the reference solves one problem
-    per call); the compaction policy mirrors the generic driver's
+    No reference counterpart (the reference solves one problem per call);
+    the compaction policy mirrors the generic driver's
     (``proxtpu/parallel/batch.py``, power-of-two shrink at ≤50%
     occupancy).
     """
     B, M, N = A.shape
     dtype = A.dtype
     segment = max(1, int(segment))  # segment <= 0 would spin forever
+    route = lasso_step_route(A, use_kernel, interpret)
     gamma_full = (1.0 / jnp.asarray(Lf)).astype(dtype) * jnp.ones((B,), dtype)
     thr_full = (gamma_full * jnp.asarray(lam)).astype(dtype)
 
-    step_fn = (
-        partial(fused_fb_prox_grad, interpret=interpret)
-        if use_kernel
-        else reference_fb_prox_grad
-    )
     x0 = jnp.zeros((B, N), dtype) if x0 is None else \
         jnp.asarray(x0, dtype).reshape(B, N)
-    z0, res0 = step_fn(A, b, x0, gamma_full, thr_full)
+    z0, res0 = _fb_step(route, interpret)(A, b, x0, gamma_full, thr_full)
     done0 = res0 / gamma_full <= tol
     t1 = (1 + jnp.sqrt(5.0)) / 2 * jnp.ones((B,), dtype)
 
@@ -728,8 +677,7 @@ def solve_lasso_batch_compacting(
         k, x, z_prev, t, done, iters = _fista_segment(
             cur["A"], cur["b"], cur["gamma"], cur["thr"], tol,
             k, cur["x"], cur["z_prev"], cur["t"], cur["done"], cur["iters"],
-            k_end, use_kernel=use_kernel, interpret=interpret,
-            restart=restart,
+            k_end, route=route, interpret=interpret, restart=restart,
         )
         cur.update(x=x, z_prev=z_prev, t=t, done=done, iters=iters)
         done_h = np.asarray(done)     # host sync (once per segment)
@@ -740,7 +688,7 @@ def solve_lasso_batch_compacting(
         target = max(min_batch, 1 << int(np.ceil(np.log2(active))))
         if target < Bc:
             # flush finished lanes, gather the active ones (+ padding
-            # duplicates of lane 0 marked done, which the kernel freezes)
+            # duplicates of lane 0 marked done, which the step freezes)
             flush(done_h)
             act = np.nonzero(~done_h[:live])[0]
             pad = np.zeros(target - act.size, np.int64)
@@ -765,166 +713,6 @@ def solve_lasso_batch_compacting(
     return jnp.asarray(out_z), jnp.asarray(out_it), jnp.asarray(out_done)
 
 
-def _fb_k_steps_kernel(K, restart=False):
-    """Kernel factory: K FISTA iterations per invocation with A resident in
-    VMEM — HBM reads A once per K iterations instead of once per iteration,
-    turning the memory-bound step compute-bound (the iteration-blocking fast
-    path; trajectories are identical to the one-step kernel, only the
-    convergence read-out happens every K steps).  ``restart`` applies the
-    O'Donoghue-Candès gradient restart *inside* the inner loop (the t-reset
-    lands on the very next inner step — no sampling lag)."""
-
-    def kernel(A_ref, b_ref, x_ref, zp_ref, t_ref, gamma_ref, thr_ref,
-               done_ref, xo_ref, zo_ref, to_ref, res_ref):
-        L = A_ref.shape[0]
-        for l in range(L):
-            A = A_ref[l]          # (M, N) stays in VMEM for all K steps
-            bcol = b_ref[l]       # (M, 1)
-            gamma = gamma_ref[l, 0, 0]
-            thr = thr_ref[l, 0, 0]
-            dm = done_ref[l, 0, 0]  # 1.0 = frozen lane
-
-            def step(_, carry):
-                x, zprev, t, _res = carry
-                r = jnp.sum(A * x, axis=1, keepdims=True) - bcol
-                grad = jnp.sum(A * r, axis=0, keepdims=True)
-                y = x - gamma * grad
-                z = jnp.sign(y) * jnp.maximum(jnp.abs(y) - thr, 0.0)
-                res = jnp.max(jnp.abs(x - z))
-                if restart:
-                    # immediate restart: reset t BEFORE drawing the
-                    # coefficient (= AdaptiveRestartSequence semantics)
-                    rs = jnp.sum((x - z) * (z - zprev))
-                    t = jnp.where(rs > 0, jnp.ones_like(t), t)
-                t_new = (1 + jnp.sqrt(1 + 4 * t * t)) / 2
-                beta = (t - 1) / t_new
-                x_new = z + beta * (z - zprev)
-                return (x_new, z, t_new, res)
-
-            x_in, zp_in, t_in = x_ref[l], zp_ref[l], t_ref[l, 0, 0]
-            x, z, t, res = jax.lax.fori_loop(
-                0, K, step, (x_in, zp_in, t_in, jnp.zeros((), A.dtype)),
-            )
-            # frozen lanes keep their carry (the freeze select that used
-            # to run as XLA where-ops per trip)
-            xo_ref[l] = dm * x_in + (1 - dm) * x
-            zo_ref[l] = dm * zp_in + (1 - dm) * z
-            to_ref[l] = (dm * t_in + (1 - dm) * t).reshape(1, 1)
-            # stopping read-out: |x - z| of the last inner step — the same
-            # criterion the one-step solver checks every iteration
-            res_ref[l] = ((1 - dm) * res).reshape(1, 1)
-
-    return kernel
-
-
-@partial(jax.jit, static_argnames=("K", "interpret", "lanes", "restart"))
-def fused_fista_k_steps(A, b, x, z_prev, t, gamma, thr, done_mask=None,
-                        K=8, interpret=False, lanes=None, restart=False):
-    """Run K fused FISTA iterations for the whole batch in one kernel call.
-
-    ``done_mask`` (B,) float 1.0-marks frozen lanes (their carry passes
-    through unchanged, in-kernel); the x/z_prev/t carries are aliased to
-    the outputs so a while-loop updates them in place.  Returns
-    (x, z, t, res_inf) where res_inf is ||x - z||_inf of the final inner
-    step (the FB-family stopping quantity; 0 for frozen lanes).
-    """
-    B, M, N = A.shape
-    dtype = A.dtype
-    L = auto_lanes(B, M * N * dtype.itemsize, lanes)
-    b3 = b.reshape(B, M, 1)
-    x3 = x.reshape(B, 1, N)
-    zp3 = z_prev.reshape(B, 1, N)
-    s3 = lambda v: v.reshape(B, 1, 1).astype(dtype)
-    if done_mask is None:
-        done_mask = jnp.zeros((B,), dtype)
-
-    vspec = lambda shape: pl.BlockSpec(
-        (L,) + shape, lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-    )
-    xo, zo, to, res = pl.pallas_call(
-        _fb_k_steps_kernel(K, restart=restart),
-        grid=(B // L,),
-        in_specs=[
-            vspec((M, N)), vspec((M, 1)), vspec((1, N)), vspec((1, N)),
-            vspec((1, 1)), vspec((1, 1)), vspec((1, 1)), vspec((1, 1)),
-        ],
-        out_specs=[vspec((1, N)), vspec((1, N)), vspec((1, 1)),
-                   vspec((1, 1))],
-        out_shape=[
-            jax.ShapeDtypeStruct((B, 1, N), dtype),
-            jax.ShapeDtypeStruct((B, 1, N), dtype),
-            jax.ShapeDtypeStruct((B, 1, 1), dtype),
-            jax.ShapeDtypeStruct((B, 1, 1), dtype),
-        ],
-        input_output_aliases={2: 0, 3: 1, 4: 2},
-        cost_estimate=pl.CostEstimate(
-            flops=4 * K * B * M * N,
-            bytes_accessed=B * M * N * dtype.itemsize,
-            transcendentals=K * B,
-        ),
-        interpret=interpret,
-    )(A, b3, x3, zp3, s3(t), s3(gamma), s3(thr), s3(done_mask))
-    return (xo.reshape(B, N), zo.reshape(B, N), to.reshape(B),
-            res.reshape(B))
-
-
-@partial(
-    jax.jit,
-    static_argnames=("maxit", "iter_block", "interpret", "lanes", "restart"),
-)
-def solve_lasso_batch_blocked(
-    A, b, lam, Lf, tol, maxit=2000, iter_block=8, interpret=False,
-    lanes=None, restart=False, x0=None,
-):
-    """Batched FISTA with K-step iteration blocking: A is read from HBM once
-    per ``iter_block`` iterations instead of once per iteration.
-
-    The iterate trajectory is identical to :func:`solve_lasso_batch`; the
-    stopping criterion is only *sampled* every ``iter_block`` steps.  Since
-    FISTA's fixed-point residual is non-monotone, a lane whose residual
-    dips below tol between sample points keeps iterating until a sampled
-    residual is below tol — iteration counts are an upper bound and the
-    returned solutions are at least as converged as the one-step solver's.
-    The trade: A is read from HBM once per ``iter_block`` iterations, which
-    converts the memory-bound step into a compute-bound one.
-    """
-    B, M, N = A.shape
-    dtype = A.dtype
-    gamma = (1.0 / jnp.asarray(Lf)).astype(dtype)
-    thr = (gamma * jnp.asarray(lam)).astype(dtype)
-    K = iter_block
-
-    x0 = jnp.zeros((B, N), dtype) if x0 is None else \
-        jnp.asarray(x0, dtype).reshape(B, N)
-    z0, res0 = fused_fb_prox_grad(A, b, x0, gamma, thr, interpret=interpret,
-                                  lanes=lanes)
-    done0 = res0 / gamma <= tol
-    t1 = (1 + jnp.sqrt(5.0)) / 2 * jnp.ones((B,), dtype)
-    init = (jnp.asarray(1, jnp.int32), z0, z0, t1, done0,
-            jnp.ones((B,), jnp.int32))
-
-    def cond(c):
-        return (c[0] < maxit) & jnp.logical_not(jnp.all(c[4]))
-
-    def body(c):
-        k, x, z_prev, t, done, iters = c
-        xn, zn, tn, res = fused_fista_k_steps(
-            A, b, x, z_prev, t, gamma, thr, done.astype(dtype), K=K,
-            interpret=interpret, lanes=lanes, restart=restart,
-        )
-        k = k + K
-        newly_done = res / gamma <= tol
-        iters = jnp.where(done, iters, k)
-        return (k, xn, zn, tn, done | newly_done, iters)
-
-    k, x, z, t, done, iters = jax.lax.while_loop(cond, body, init)
-    # The loop advances K iterations at a time from k=1, so unconverged lanes
-    # may have run up to maxit+K-1 steps; clamp the *report* to the maxit
-    # contract (matching solve_lasso_batch's exact cap).
-    iters = jnp.minimum(jnp.where(done, iters, k), maxit)
-    return z, iters, done
-
-
 @partial(jax.jit, static_argnames=("maxit", "iter_block", "restart"))
 def solve_lasso_multirhs(A, Bmat, lam, Lf, tol, maxit=2000, iter_block=1,
                          restart=False, x0=None, lam2=None):
@@ -933,28 +721,23 @@ def solve_lasso_multirhs(A, Bmat, lam, Lf, tol, maxit=2000, iter_block=1,
         min_x  ||A x_i - b_i||^2 / 2 + lam_i ||x_i||_1,   i = 1..B
 
     (lasso paths, multi-target regression, scenario sweeps over b).  Unlike
-    the distinct-A batch — whose per-lane matvecs are VPU-bound multiply-
-    reduces — the shared-A step is two *real* matmuls, (B,N)@(N,M) and
-    (B,M)@(M,N), which map straight onto the MXU at full tile utilization.
-    This is the speed-of-light formulation whenever the workload allows it:
-    the MXU at HIGHEST (6-pass bf16 ~ f32) precision sustains ~10x the
-    VPU's f32 FMA rate, and A stays resident in CMEM/VMEM across the whole
-    batch instead of being streamed once per lane.
+    the distinct-A batch — whose per-lane matvecs are bandwidth-bound
+    multiply-reduces — the shared-A step is two real matrix products,
+    (B,N)@(N,M) and (B,M)@(M,N), and A is read once per iteration for the
+    whole batch instead of once per lane.
 
     Same iterate trajectory, stopping rule (``||x-z||_inf / gamma <= tol``)
-    and per-lane freezing as :func:`solve_lasso_batch`; pure XLA (no Pallas
-    needed — XLA fuses the prox/extrapolation elementwise epilogue into the
-    matmuls).
+    and per-lane freezing as :func:`solve_lasso_batch`; pure XLA (XLA fuses
+    the prox/extrapolation elementwise epilogue around the matmuls).
 
     Args:
       A: (M, N) shared design matrix.  Bmat: (B, M) right-hand sides.
       lam: scalar or (B,) l1 weights.  Lf: scalar ``opnorm(A)^2``.
-      iter_block: FISTA iterations per while-loop trip.  The per-trip fixed
-        cost (op sequencing, convergence reduction, lane freezing) dwarfs
-        the ~tens of microseconds of MXU work at these sizes, so K>1
-        amortizes it; convergence is then *sampled* every K iterations
-        (counts become upper bounds, same semantics as
-        :func:`solve_lasso_batch_blocked`).  K=1 checks every iteration.
+      iter_block: FISTA iterations per while-loop trip.  K>1 amortizes
+        the per-trip fixed cost (convergence reduction, lane freezing,
+        loop control) over K steps; convergence is then *sampled* every
+        K iterations, so counts become upper bounds (a lane is never
+        reported converged before it is).  K=1 checks every iteration.
       restart: per-lane O'Donoghue-Candès gradient restart, checked once
         per ``iter_block`` (on the block's last step) so the restart
         reduction does not break the fused matmul chain of the other
@@ -970,7 +753,7 @@ def solve_lasso_multirhs(A, Bmat, lam, Lf, tol, maxit=2000, iter_block=1,
     thr = jnp.broadcast_to((gamma * jnp.asarray(lam)).astype(dtype), (B,))
     # optional elastic-net ridge: prox epilogue z / (1 + gamma*lam2) — XLA
     # fuses the extra elementwise op into the matmul epilogue, so the
-    # shared-A MXU formulation covers the elastic net at lasso speed
+    # shared-A formulation covers the elastic net at lasso speed
     # (divide, not multiply-by-reciprocal: bit-matches ElasticNet.prox)
     shrink = None if lam2 is None else (
         1.0 + gamma * jnp.broadcast_to(jnp.asarray(lam2, dtype), (B,))
@@ -980,8 +763,8 @@ def solve_lasso_multirhs(A, Bmat, lam, Lf, tol, maxit=2000, iter_block=1,
     hi = jax.lax.Precision.HIGHEST
 
     def step_fn(X):
-        R = jnp.matmul(X, A.T, precision=hi) - Bmat          # (B, M)  MXU
-        G = jnp.matmul(R, A, precision=hi)                   # (B, N)  MXU
+        R = jnp.matmul(X, A.T, precision=hi) - Bmat          # (B, M)
+        G = jnp.matmul(R, A, precision=hi)                   # (B, N)
         Y = X - gamma * G
         Z = jnp.sign(Y) * jnp.maximum(jnp.abs(Y) - thr[:, None], 0.0)
         if shrink is not None:
@@ -995,9 +778,8 @@ def solve_lasso_multirhs(A, Bmat, lam, Lf, tol, maxit=2000, iter_block=1,
             if restart and check:
                 # O'Donoghue-Candès gradient signal, evaluated ONLY on the
                 # last step of each K-block: the per-step (B,N) reduction +
-                # select breaks XLA's matmul-epilogue fusion (measured
-                # 5138 -> 4547 p/s at the flagship shape, BASELINE.md),
-                # while the delayed check keeps the fused matmul chain for
+                # select breaks XLA's matmul-epilogue fusion, while the
+                # delayed check keeps the fused matmul chain for
                 # the first K-1 steps and still kills a wrong-way momentum
                 # within one block (restart tolerates delayed checks: the
                 # signal stays positive while the momentum overshoots).
@@ -1049,23 +831,22 @@ def solve_lasso_multirhs(A, Bmat, lam, Lf, tol, maxit=2000, iter_block=1,
 )
 def solve_lasso_batch_mixed(
     A, b, lam, Lf, tol, maxit=1000, warm_tol=None, warm_maxit=None,
-    use_kernel=True, interpret=False, warm_dtype=jnp.bfloat16,
+    use_kernel=None, interpret=False, warm_dtype=jnp.bfloat16,
     restart=False,
 ):
     """Two-stage mixed-precision batched FISTA: bf16-A warm start, f32 polish.
 
-    The per-iteration cost of the one-step kernel is the A-stream itself
-    (BASELINE.md round-3 ablation: a pure-read kernel costs the same trip
-    time as the full solver body), so storing A in bfloat16 halves the HBM
-    bytes — and the per-iteration time — for as long as the iterates are
-    far from the solution.  Stage 1 iterates on the bf16-cast operator
-    (compute still f32 in-kernel; only the *storage* narrows) until the
-    residual clears ``warm_tol``; stage 2 restarts the Nesterov sequence
-    from the warm iterate and polishes with the exact f32 operator to
-    ``tol``.  The final stopping criterion is identical to
+    The per-iteration cost of the distinct-A step is the A stream itself,
+    so storing A in bfloat16 halves the bytes per iteration for as long as
+    the iterates are far from the solution.  Stage 1 iterates on the
+    bf16-cast operator (compute stays f32; only the *storage* narrows)
+    until the residual clears ``warm_tol``; stage 2 restarts the Nesterov
+    sequence from the warm iterate and polishes with the exact f32
+    operator to ``tol``.  The final stopping criterion is identical to
     :func:`solve_lasso_batch` (``||x - z||_inf / gamma <= tol`` at the f32
     operator), so solution quality is unchanged — only the path to it is
-    cheaper.
+    cheaper.  ``use_kernel``/``interpret`` choose the step as in
+    :func:`solve_lasso_batch` (the kernel widens bf16 tiles on load).
 
     ``warm_tol`` defaults to ``max(tol * 30, 1e-2)``, i.e. at least
     1e-2: the bf16 operator perturbs the fixed point by roughly the bf16
@@ -1082,38 +863,23 @@ def solve_lasso_batch_mixed(
         warm_tol = jnp.maximum(jnp.asarray(tol) * 30.0, 1e-2)
     if warm_maxit is None:
         warm_maxit = maxit
-    gamma = (1.0 / jnp.asarray(Lf)).astype(dtype)
+    route = lasso_step_route(A, use_kernel, interpret)
+    gamma = jnp.broadcast_to((1.0 / jnp.asarray(Lf)).astype(dtype), (B,))
     thr = (gamma * jnp.asarray(lam)).astype(dtype)
-    A16 = A.astype(warm_dtype)  # warm_dtype=float32 isolates the pure
-    # two-stage/restart effect from the narrow-storage effect (measured
-    # separately in BASELINE.md)
+    # warm_dtype=float32 isolates the two-stage/restart effect from the
+    # narrow-storage effect
+    A16 = A.astype(warm_dtype)
+    # the kernel widens narrow tiles itself; the XLA step gets a widened A
+    widen = (lambda A_: A_) if route == "kernel" else \
+        (lambda A_: A_.astype(dtype))
+    fb, step = _fb_step(route, interpret), _full_step(route, interpret)
 
-    if use_kernel:
-        one_step = lambda A_, x: fused_fb_prox_grad(
-            A_, b, x, gamma, thr, interpret=interpret
-        )
-        full_step = lambda A_, x, zp, beta, dm: fused_fista_full_step(
-            A_, b, x, zp, beta, gamma, thr, dm, interpret=interpret,
-            restart=restart,
-        )
-    else:
-        def one_step(A_, x):
-            return reference_fb_prox_grad(
-                A_.astype(dtype), b, x, gamma, thr
-            )
+    def one_step(A_, x):
+        return fb(widen(A_), b, x, gamma, thr)
 
-        def full_step(A_, x, zp, beta, dm):
-            z, res = one_step(A_, x)
-            rs = jnp.sum((x - z) * (z - zp), axis=1)
-            if restart:
-                # immediate restart (= AdaptiveRestartSequence semantics):
-                # zero THIS step's extrapolation on trigger
-                beta = jnp.where(rs > 0, jnp.zeros_like(beta), beta)
-            x_new = z + beta[:, None] * (z - zp)
-            keep = dm[:, None] > 0
-            return (jnp.where(keep, x, x_new), jnp.where(keep, zp, z),
-                    jnp.where(dm > 0, 0.0, res).astype(dtype),
-                    jnp.where(dm > 0, 0.0, rs).astype(dtype))
+    def full_step(A_, x, zp, beta, dm):
+        return step(widen(A_), b, x, zp, beta, gamma, thr, dm,
+                    restart=restart)
 
     def fista_stage(A_, x_init, z_init, stop_tol, stage_maxit, k0, iters0,
                     done0):
@@ -1169,518 +935,39 @@ def solve_lasso_batch_mixed(
     return z, iters, done
 
 
-# ---------------------------------------------------------------------------
-# Lane-packed kernels: zero-padding A stream (round 4, VERDICT r3 task 3)
-# ---------------------------------------------------------------------------
-
-def _pack_count(N, B):
-    """Problems per packed row: the smallest p with N*p a multiple of 128
-    (p = 128/gcd(N, 128)); 1 (no packing possible/needed) when N is already
-    lane-aligned, N < 128 (no aligned main region to slice), or p does not
-    divide B."""
-    import math
-
-    p = 128 // math.gcd(N, 128)
-    if p == 1 or B % p != 0 or N < 128:
-        return 1
-    return p
-
-
-def _pack_cols(v, pack, nfull):
-    """(Bp, pack, M, N) -> (Bp, M, W): problem i's first ``nfull`` columns
-    become the 128-aligned slice [nfull*i, nfull*(i+1)); the remainders are
-    collected into the shared trailing leftover region (problem i at
-    [W_main + rem*i, W_main + rem*(i+1)))."""
-    Bp, pack_, M, N = v.shape
-    main = v[..., :nfull].transpose(0, 2, 1, 3).reshape(Bp, M, pack * nfull)
-    if N == nfull:
-        return main
-    left = v[..., nfull:].transpose(0, 2, 1, 3).reshape(
-        Bp, M, pack * (N - nfull))
-    return jnp.concatenate([main, left], axis=2)
-
-
-def pack_lasso_batch(A, b, pack):
-    """Tile-aligned interleaved packing: (B,M,N) -> (B/pack, M, pack*N)
-    with ZERO lane padding (pack*N is a 128-multiple by construction) and
-    every per-problem main slice 128-aligned.  One-time XLA transpose."""
-    B, M, N = A.shape
-    Bp = B // pack
-    nfull = (N // 128) * 128
-    Ap = _pack_cols(A.reshape(Bp, pack, M, N), pack, nfull)
-    bp = b.reshape(Bp, pack, M).transpose(0, 2, 1)
-    return Ap, bp
-
-
-def _pack_rows(x, pack, nfull):
-    """(B, N) iterate rows -> (Bp, W) packed rows (same column order as
-    :func:`_pack_cols`)."""
-    B, N = x.shape
-    Bp = B // pack
-    x4 = x.reshape(Bp, pack, 1, N)
-    return _pack_cols(x4, pack, nfull).reshape(Bp, pack * N)
-
-
-def _unpack_rows(xp, pack, N):
-    """Inverse of :func:`_pack_rows`: (Bp, W) -> (B, N)."""
-    Bp, W = xp.shape
-    nfull = (N // 128) * 128
-    rem = N - nfull
-    main = xp[:, :pack * nfull].reshape(Bp, 1, pack, nfull).transpose(
-        0, 2, 1, 3)
-    if rem == 0:
-        return main.reshape(Bp * pack, N)
-    left = xp[:, pack * nfull:].reshape(Bp, 1, pack, rem).transpose(
-        0, 2, 1, 3)
-    return jnp.concatenate([main, left], axis=3).reshape(Bp * pack, N)
-
-
-def _fista_packed_step_kernel(N, pack, restart=False):
-    """One full FISTA iteration for ``pack`` problems packed into one
-    (M, pack*N) row — the zero-lane-padding layout.
-
-    At the flagship 256x200x400 shape the natural (M, N) tile pads N=400
-    to 512 HBM/VMEM lanes, so ~22% of the A stream — which IS the
-    per-iteration cost (BASELINE.md round-3 pure-read ablation) — is dead
-    bytes.  Packing p = 128/gcd(N,128) problems per row makes the width
-    W = p*N an exact lane multiple: the HBM array carries ZERO padding.
-
-    Layout (the key to keeping the bookkeeping off the MXU: a first
-    attempt that segmented contiguous per-problem regions via 0/1
-    indicator matmuls lost 2x — (M,W)x(W,p) at HIGHEST precision pads the
-    p outputs to 128 MXU columns and runs 6 bf16 passes, ~160 us/iter
-    each at the flagship shape — measured, kept in the round log):
-
-    * problem i's first ``nfull = (N//128)*128`` columns sit at the
-      128-ALIGNED slice [nfull*i, nfull*(i+1)) — per-problem math is
-      plain aligned lane-slicing, exactly the per-lane body of
-      :func:`_fista_full_step_kernel`, no relayouts;
-    * the ``rem = N - nfull`` leftover columns of all p problems share
-      the trailing ``p*rem``-wide region (a 128-multiple by
-      construction) and are processed COLLECTIVELY: per-problem
-      reductions/broadcasts run as p statically-unrolled mask
-      accumulates on (M, p*rem) or (1, p*rem), and all ref writes cover
-      whole aligned regions.  At the flagship shape the leftover region
-      is ONE 128-lane tile, so the masked work is ~3% of the main
-      elementwise stream.
-
-    Math, freezing, restart and stopping semantics are identical to
-    :func:`_fista_full_step_kernel`; within each problem the lane
-    reduction splits into main + leftover parts (different summation
-    order), so solutions agree to f32 reduction noise and counts can
-    knife-edge by +-1 — the same equivalence class as XLA-vs-kernel.
-    """
-    nfull = (N // 128) * 128
-    rem = N - nfull
-    Wm = pack * nfull  # main width; leftover region is [Wm, Wm + pack*rem)
-
-    def kern(A_ref, b_ref, x_ref, zp_ref, beta_ref, gamma_ref,
-             thr_ref, done_ref, xo_ref, zo_ref, res_ref, rs_ref):
-        dtype = x_ref.dtype
-
-        if rem:
-            Al = A_ref[0, :, Wm:]     # (M, p*rem) aligned slice
-            xl = x_ref[0, :, Wm:]     # (1, p*rem)
-            zpl = zp_ref[0, :, Wm:]
-            Pl = Al * xl              # (M, p*rem)
-            lseg = jax.lax.broadcasted_iota(
-                jnp.int32, (1, pack * rem), 1) // rem
-            lmasks = [(lseg == i).astype(dtype) for i in range(pack)]
-            Rfl = jnp.zeros(Al.shape, dtype)
-
-        # pass 1: per-problem FB step on the aligned main slices; the
-        # leftover broadcast-back accumulates across problems
-        zis, ris = [], []
-        for i in range(pack):
-            sl = slice(nfull * i, nfull * (i + 1))
-            Ai = A_ref[0, :, sl]      # (M, nfull) aligned
-            xi = x_ref[0, :, sl]      # (1, nfull)
-            gamma = gamma_ref[0, i, 0]
-            thr = thr_ref[0, i, 0]
-
-            ri = jnp.sum(Ai * xi, axis=1, keepdims=True)      # (M, 1)
-            if rem:
-                ri = ri + jnp.sum(Pl * lmasks[i], axis=1, keepdims=True)
-            ri = ri - b_ref[0, :, i:i + 1]
-            gi = jnp.sum(Ai * ri, axis=0, keepdims=True)      # (1, nfull)
-            yi = xi - gamma * gi
-            zis.append(jnp.sign(yi) * jnp.maximum(jnp.abs(yi) - thr, 0.0))
-            ris.append(ri)
-            if rem:
-                Rfl = Rfl + ri * lmasks[i]
-
-        # leftover region: one collective prox step for all p problems
-        if rem:
-            gl = jnp.sum(Al * Rfl, axis=0, keepdims=True)     # (1, p*rem)
-            gamma_lrow = jnp.zeros((1, pack * rem), dtype)
-            thr_lrow = jnp.zeros((1, pack * rem), dtype)
-            for i in range(pack):
-                gamma_lrow = gamma_lrow + gamma_ref[0, i, 0] * lmasks[i]
-                thr_lrow = thr_lrow + thr_ref[0, i, 0] * lmasks[i]
-            yl = xl - gamma_lrow * gl
-            zl = jnp.sign(yl) * jnp.maximum(jnp.abs(yl) - thr_lrow, 0.0)
-            ml = jnp.abs(xl - zl)
-            prodl = (xl - zl) * (zl - zpl)
-            beta_lrow = jnp.zeros((1, pack * rem), dtype)
-            dm_lrow = jnp.zeros((1, pack * rem), dtype)
-
-        # pass 2: stopping/restart reductions over BOTH parts, then the
-        # extrapolation + freeze writes (main slices aligned; the leftover
-        # region written once, below)
-        res_cols, rs_cols = [], []
-        for i in range(pack):
-            sl = slice(nfull * i, nfull * (i + 1))
-            xi = x_ref[0, :, sl]
-            zpi = zp_ref[0, :, sl]
-            zi = zis[i]
-            dm = done_ref[0, i, 0]
-            beta = beta_ref[0, i, 0]
-
-            res_i = jnp.max(jnp.abs(xi - zi))
-            rs_i = jnp.sum((xi - zi) * (zi - zpi))
-            if rem:
-                res_i = jnp.maximum(res_i, jnp.max(ml * lmasks[i]))
-                rs_i = rs_i + jnp.sum(prodl * lmasks[i])
-            if restart:
-                beta = jnp.where(rs_i > 0, jnp.zeros_like(beta), beta)
-            xi_new = zi + beta * (zi - zpi)
-            xo_ref[0, :, sl] = dm * xi + (1 - dm) * xi_new
-            zo_ref[0, :, sl] = dm * zpi + (1 - dm) * zi
-            res_cols.append(((1 - dm) * res_i).reshape(1, 1))
-            rs_cols.append(((1 - dm) * rs_i).reshape(1, 1))
-            if rem:
-                beta_lrow = beta_lrow + beta * lmasks[i]
-                dm_lrow = dm_lrow + dm * lmasks[i]
-        # Mosaic cannot store scalars to VMEM: emit the per-problem
-        # read-outs as one (pack, 1) column store each
-        res_ref[0] = jnp.concatenate(res_cols, axis=0)
-        rs_ref[0] = jnp.concatenate(rs_cols, axis=0)
-
-        if rem:
-            xl_new = zl + beta_lrow * (zl - zpl)
-            xo_ref[0, :, Wm:] = dm_lrow * xl + (1 - dm_lrow) * xl_new
-            zo_ref[0, :, Wm:] = dm_lrow * zpl + (1 - dm_lrow) * zl
-
-    return kern
-
-
-@partial(jax.jit, static_argnames=("N", "pack", "interpret", "restart"))
-def fused_fista_packed_step(Ap, bp, x, z_prev, beta, gamma, thr,
-                            done_mask, N, pack, interpret=False,
-                            restart=False):
-    """One packed full FISTA iteration (see ``_fista_packed_step_kernel``).
-
-    Packed-layout operands: Ap (Bp, M, W), bp (Bp, M, pack), x/z_prev
-    (Bp, W) carries (aliased in place), per-problem scalars (Bp, pack).
-    Returns (x_new, z_new, res_inf (Bp, pack), restart_sig (Bp, pack)).
-    """
-    Bp, M, W = Ap.shape
-    dtype = x.dtype
-    x3 = x.reshape(Bp, 1, W)
-    zp3 = z_prev.reshape(Bp, 1, W)
-    col = lambda v: v.reshape(Bp, pack, 1).astype(dtype)
-    vspec = lambda shape: pl.BlockSpec(
-        (1,) + shape, lambda i: (i, 0, 0), memory_space=pltpu.VMEM
-    )
-
-    xo, zo, res, rs = pl.pallas_call(
-        _fista_packed_step_kernel(N, pack, restart=restart),
-        grid=(Bp,),
-        in_specs=[
-            vspec((M, W)), vspec((M, pack)), vspec((1, W)), vspec((1, W)),
-            vspec((pack, 1)), vspec((pack, 1)), vspec((pack, 1)),
-            vspec((pack, 1)),
-        ],
-        out_specs=[vspec((1, W)), vspec((1, W)), vspec((pack, 1)),
-                   vspec((pack, 1))],
-        out_shape=[
-            jax.ShapeDtypeStruct((Bp, 1, W), dtype),
-            jax.ShapeDtypeStruct((Bp, 1, W), dtype),
-            jax.ShapeDtypeStruct((Bp, pack, 1), dtype),
-            jax.ShapeDtypeStruct((Bp, pack, 1), dtype),
-        ],
-        input_output_aliases={2: 0, 3: 1},
-        cost_estimate=pl.CostEstimate(
-            flops=4 * Bp * M * W,
-            bytes_accessed=Bp * M * (W + pack) * dtype.itemsize
-            + 5 * Bp * W * dtype.itemsize,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(Ap, bp, x3, zp3, col(beta), col(gamma), col(thr), col(done_mask))
-    return (xo.reshape(Bp, W), zo.reshape(Bp, W),
-            res.reshape(Bp, pack), rs.reshape(Bp, pack))
-
-
-def solve_lasso_batch_packed(
-    A, b, lam, Lf, tol, maxit=1000, interpret=False, restart=False,
-    x0=None, pack=None, mf=None, step_mult=1.0, stall_patience=100,
-    lam2=None,
-):
-    """Batched FISTA with the zero-lane-padding packed kernel.
-
-    Same stopping rule, freezing and (optional) adaptive-restart and
-    over-relaxation (``step_mult``/``stall_patience``, see
-    :func:`solve_lasso_batch`) semantics as :func:`solve_lasso_batch`;
-    the A stream carries no pad bytes (22%
-    of the per-iteration cost at the flagship 256x200x400 shape, where
-    N=400 pads to 512 lanes in the natural layout).  ``pack`` problems are
-    interleaved per kernel row (default ``128/gcd(N,128)``); requires
-    ``pack`` to divide B.  Iteration counts match :func:`solve_lasso_batch`
-    up to f32 reduction-order knife edges (each problem's lane reduction
-    splits into aligned-main + leftover parts).
-
-    When called eagerly (the normal case) the packing transpose runs as
-    its own one-time op (~1 ms at the flagship shape) and the jitted solve
-    core takes the packed arrays — keeping the transpose out of the solve
-    program pins the packed buffers' dense layout once instead of leaving
-    it to per-program layout assignment.  The function is also traceable
-    (all-jax ops), so it composes with ``shard_map`` — see
-    :func:`proxtpu.parallel.sharded_solve_lasso_batch_packed`.
-    """
-    B, M, N = A.shape
-    dtype = A.dtype
-    if mf is not None and restart:
-        raise ValueError(
-            "restart needs the t-recursion; mf>0 uses a constant "
-            "extrapolation coefficient (restart would be a no-op)"
-        )
-    _validate_step_mult(step_mult, restart, mf)
-    if lam2 is not None:
-        # the packed kernel has no shrink operand (yet); the elastic net
-        # rides the natural-layout fused kernel instead
-        return solve_lasso_batch(
-            A, b, lam, Lf, tol, maxit=maxit, use_kernel=True,
-            interpret=interpret, restart=restart, x0=x0, lam2=lam2,
-        )
-    if pack is None:
-        pack = _pack_count(N, B)
-    if pack == 1:
-        return solve_lasso_batch(
-            A, b, lam, Lf, tol, maxit=maxit, use_kernel=True,
-            interpret=interpret, restart=restart, x0=x0, mf=mf,
-            step_mult=step_mult, stall_patience=stall_patience,
-        )
-    nfull = (N // 128) * 128
-    Ap, bp = pack_lasso_batch(jnp.asarray(A), jnp.asarray(b), pack)
-    x0 = jnp.zeros((B, N), dtype) if x0 is None else \
-        jnp.asarray(x0, dtype).reshape(B, N)
-    x0p = _pack_rows(x0, pack, nfull)
-    # the output unpack/reshape live INSIDE the jitted core, so all three
-    # outputs come from one executable — materializing any of them (e.g.
-    # the 2 KB iteration counts as a completion fence, see
-    # proxtpu/parallel/stream.py) proves the whole solve finished
-    return _solve_packed_core(
-        Ap, bp, jnp.asarray(lam), jnp.asarray(Lf), tol, x0p,
-        N=N, pack=pack, maxit=maxit, interpret=interpret, restart=restart,
-        mf=mf, step_mult=step_mult, stall_patience=stall_patience,
-    )
-
-
-@partial(
-    jax.jit,
-    static_argnames=("N", "pack", "maxit", "interpret", "restart", "mf",
-                     "step_mult", "stall_patience"),
-)
-def _solve_packed_core(
-    Ap, bp, lam, Lf, tol, x0p, *, N, pack, maxit, interpret, restart,
-    mf=None, step_mult=1.0, stall_patience=100,
-):
-    """Jitted packed-FISTA core over pre-packed operands (see
-    :func:`solve_lasso_batch_packed`).  Returns UNPACKED
-    ``(xs (B, N), iters (B,), done (B,))`` — the unpack runs inside this
-    one executable so any output leaf is a complete completion fence.
-    ``step_mult != 1`` runs the over-relaxed + stall-safeguard variant
-    (same semantics as :func:`_solve_lasso_batch_overrelaxed`, canonical
-    stopping criterion)."""
-    Bp, M, W = Ap.shape
-    B = Bp * pack
-    dtype = Ap.dtype
-    gamma = jnp.broadcast_to(
-        (step_mult / jnp.asarray(Lf)).astype(dtype), (B,))
-    thr = jnp.broadcast_to((gamma * jnp.asarray(lam)).astype(dtype), (B,))
-    gamma_p = gamma.reshape(Bp, pack)
-    thr_p = thr.reshape(Bp, pack)
-    if step_mult != 1.0:
-        gamma0_p = jnp.broadcast_to(
-            (1.0 / jnp.asarray(Lf)).astype(dtype), (B,)).reshape(Bp, pack)
-        lam_p = jnp.broadcast_to(
-            jnp.asarray(lam, dtype), (B,)).reshape(Bp, pack)
-        z, iters, done = _solve_packed_overrelaxed(
-            Ap, bp, lam_p, gamma0_p, gamma_p, tol, x0p, N=N, pack=pack,
-            maxit=maxit, interpret=interpret, stall_patience=stall_patience,
-        )
-        return _unpack_rows(z, pack, N), iters.reshape(B), done.reshape(B)
-    zeros_b = jnp.zeros((Bp, pack), dtype)
-    # init FB step = the packed step with beta = 0 (x_new == z); the
-    # restart signal at zp=x0 is -(x-z)^2 <= 0, so no spurious reset
-    z0, _, res0, _ = fused_fista_packed_step(
-        Ap, bp, x0p, x0p, zeros_b, gamma_p, thr_p, zeros_b,
-        N=N, pack=pack, interpret=interpret, restart=restart,
-    )
-    done0 = res0 / gamma_p <= tol
-    t1 = (1 + jnp.sqrt(5.0)) / 2 * jnp.ones((Bp, pack), dtype)
-    beta_const = None
-    if mf is not None:
-        beta1, beta_const = _mf_beta_pair(gamma, mf, dtype)
-        beta_const = beta_const.reshape(Bp, pack)
-        # the mf>0 sequence has NO zero first coefficient: extrapolate
-        # step 1 as z0 + beta1*(z0 - x0) (per problem, broadcast across
-        # that problem's packed columns)
-        nfull = (N // 128) * 128
-        b1_rows = _pack_rows(
-            jnp.broadcast_to(beta1[:, None], (Bp * pack, N)).astype(dtype),
-            pack, nfull)
-        x_init = z0 + b1_rows * (z0 - x0p)
-    else:
-        x_init = z0
-    init = (jnp.asarray(1, jnp.int32), x_init, z0, t1, done0,
-            jnp.ones((Bp, pack), jnp.int32))
-
-    def cond(c):
-        return (c[0] < maxit) & jnp.logical_not(jnp.all(c[4]))
-
-    def body(c):
-        k, x, z_prev, t, done, iters = c
-        if beta_const is not None:
-            beta, t_new = beta_const, t
-        else:
-            t_new = (1 + jnp.sqrt(1 + 4 * t * t)) / 2
-            beta = (t - 1) / t_new
-        x_new, z, res, rs = fused_fista_packed_step(
-            Ap, bp, x, z_prev, beta, gamma_p, thr_p,
-            done.astype(dtype), N=N, pack=pack, interpret=interpret,
-            restart=restart,
-        )
-        if restart:
-            phi = jnp.asarray((1 + jnp.sqrt(5.0)) / 2, t_new.dtype)
-            t_new = jnp.where(rs > 0, phi, t_new)
-        newly_done = res / gamma_p <= tol
-        k = k + 1
-        iters = jnp.where(done, iters, k)
-        return (k, x_new, z, jnp.where(done, t, t_new),
-                done | newly_done, iters)
-
-    k, x, z, t, done, iters = jax.lax.while_loop(cond, body, init)
-    iters = jnp.where(done, iters, k)
-    return _unpack_rows(z, pack, N), iters.reshape(B), done.reshape(B)
-
-
-def _solve_packed_overrelaxed(
-    Ap, bp, lam_p, gamma0_p, gamma_init_p, tol, x0p, *, N, pack, maxit,
-    interpret, stall_patience,
-):
-    """Packed-layout over-relaxed restart-FISTA with the per-lane stall
-    safeguard (see :func:`solve_lasso_batch` ``step_mult`` docs); all
-    bookkeeping is (Bp, pack)-shaped, the packed kernel is unchanged."""
-    Bp, M, W = Ap.shape
-    dtype = Ap.dtype
-    zeros_b = jnp.zeros((Bp, pack), dtype)
-    nfull = (N // 128) * 128
-    rem = N - nfull
-
-    def expand_rows(mask_p):
-        """(Bp, pack) per-problem mask -> (Bp, W) packed-row mask (problem
-        i's main slice at [nfull*i, nfull*(i+1)), leftovers trailing) —
-        plain repeats, no transposes, so it is cheap inside the loop."""
-        mm = jnp.repeat(mask_p, nfull, axis=1, total_repeat_length=pack * nfull)
-        if rem:
-            ml = jnp.repeat(mask_p, rem, axis=1,
-                            total_repeat_length=pack * rem)
-            mm = jnp.concatenate([mm, ml], axis=1)
-        return mm
-
-    z0, _, res0, _ = fused_fista_packed_step(
-        Ap, bp, x0p, x0p, zeros_b, gamma_init_p,
-        (gamma_init_p * lam_p).astype(dtype), zeros_b,
-        N=N, pack=pack, interpret=interpret, restart=True,
-    )
-    crit0 = res0 / gamma0_p
-    done0 = crit0 <= tol
-    t1 = (1 + jnp.sqrt(5.0)) / 2 * jnp.ones((Bp, pack), dtype)
-    init = (
-        jnp.asarray(1, jnp.int32), z0, z0, t1, done0,
-        jnp.ones((Bp, pack), jnp.int32),
-        gamma_init_p, crit0, jnp.zeros((Bp, pack), jnp.int32),
-    )
-
-    def cond(c):
-        return (c[0] < maxit) & jnp.logical_not(jnp.all(c[4]))
-
-    def body(c):
-        k, x, z_prev, t, done, iters, gam, best, since = c
-        t_new = (1 + jnp.sqrt(1 + 4 * t * t)) / 2
-        beta = (t - 1) / t_new
-        x_new, z, res, rs = fused_fista_packed_step(
-            Ap, bp, x, z_prev, beta, gam, (gam * lam_p).astype(dtype),
-            done.astype(dtype), N=N, pack=pack, interpret=interpret,
-            restart=True,
-        )
-        phi = jnp.asarray((1 + jnp.sqrt(5.0)) / 2, t_new.dtype)
-        t_new = jnp.where(rs > 0, phi, t_new)
-        crit = res / gamma0_p
-        newly_done = crit <= tol
-        # stall/runaway safeguard + cold textbook restart — see the
-        # non-packed variant (_solve_lasso_batch_overrelaxed) for the
-        # measured rationale behind each trigger and the margins
-        improved = crit < best * 0.999
-        runaway = crit > best * 10.0
-        best = jnp.where((~done) & improved, crit, best)
-        since = jnp.where(done | improved, 0, since + 1)
-        stall = (~done) & ((since >= stall_patience) | runaway) & \
-            (gam > gamma0_p)
-        gam = jnp.where(stall, gamma0_p, gam)
-        t_new = jnp.where(stall, jnp.ones_like(t_new), t_new)
-        since = jnp.where(stall, 0, since)
-        stall_rows = expand_rows(stall.astype(dtype)) > 0
-        x_new = jnp.where(stall_rows, x0p, x_new)
-        z = jnp.where(stall_rows, x0p, z)
-        k = k + 1
-        iters = jnp.where(done, iters, k)
-        return (k, x_new, z, jnp.where(done, t, t_new),
-                done | newly_done, iters, gam, best, since)
-
-    out = jax.lax.while_loop(cond, body, init)
-    k, x, z, t, done, iters = out[:6]
-    iters = jnp.where(done, iters, k)
-    return z, iters, done
-
-
-def solve_lasso_batch_packed_tail(
+def solve_lasso_batch_tail(
     A, b, lam, Lf, tol, maxit=2000, k1=192, tail=64, restart=True,
-    interpret=False,
+    use_kernel=None, interpret=False,
 ):
-    """Two-phase batched FISTA: full-width packed bulk, then a NARROW
-    continuation for the unconverged tail (round 5).
+    """Two-phase batched FISTA: a full-width bulk, then a NARROW
+    continuation for the unconverged tail.
 
-    The corrected width study (``benchmarks/results_streaming.jsonl``
-    ``per_iter_vs_width_*`` rows) showed the marginal per-iteration cost
-    is nearly linear in live batch width (~0.7 us/lane/iter), while the
-    convergence tail is sparse: on the flagship 256-lane batch, 192
-    iterations leave ~31 lanes running but the slowest lane needs ~285.
-    Running those last ~90 iterations at full width wastes ~88% of the
-    stream.  This solver:
+    Batched wall time is set by the slowest lane, while the per-iteration
+    cost grows with the live batch width.  On the flagship 256-lane batch
+    192 iterations leave a few dozen lanes running while the slowest needs
+    ~285, so running the last ~90 iterations at full width streams mostly
+    finished lanes.  This solver:
 
-    1. runs :func:`solve_lasso_batch_packed` for ``k1`` iterations
-       (same stopping rule — converged lanes freeze);
+    1. runs :func:`solve_lasso_batch` for ``k1`` iterations (same stopping
+       rule — converged lanes freeze);
     2. counts the unconverged lanes ON DEVICE (no host sync) and takes a
        ``lax.cond``:
        - if ``<= tail``: gathers the ``tail`` slowest lanes (unconverged
          first, by a stable argsort of the done mask — already-converged
          fill lanes freeze after one residual check) and continues them
-         warm-started on the natural-layout kernel at width ``tail``;
-       - else: continues ALL lanes warm-started at full width (the
-         safe fallback — same cost as not tailing, plus ``k1``'s
-         phase-boundary restart).
+         warm-started at width ``tail``;
+       - else: continues ALL lanes warm-started at full width (the safe
+         fallback — same cost as not tailing, plus ``k1``'s phase-boundary
+         restart).
     3. scatters the tail solutions back.
 
-    Everything is traceable (designed to live under ONE outer ``jax.jit``
-    like the headline solve, so the whole two-phase solve is a single
-    executable).  Same stopping criterion per phase; the warm restart at
-    the phase boundary resets Nesterov momentum (the r3 mixed-precision
-    study measured boundary restarts neutral-to-helpful).  Reported
-    per-lane iteration counts are ``k1 + phase2`` for tail lanes —
-    comparable but not identical to the single-phase counts.
+    Everything is traceable (designed to live under ONE outer ``jax.jit``,
+    so the whole two-phase solve is a single executable).  Same stopping
+    criterion per phase; the warm restart at the phase boundary resets
+    Nesterov momentum.  Reported per-lane iteration counts are
+    ``k1 + phase2`` for tail lanes — comparable but not identical to the
+    single-phase counts.  ``use_kernel``/``interpret`` choose the step as
+    in :func:`solve_lasso_batch`.
 
     Returns ``(xs (B, N), iters (B,), done (B,))``.
     """
@@ -1688,13 +975,12 @@ def solve_lasso_batch_packed_tail(
     if not 0 < tail <= B:
         raise ValueError(f"tail must be in (0, {B}], got {tail}")
     k1 = min(k1, maxit)  # a small maxit caps phase 1, not the reverse
-    # scalar lam/Lf are accepted (like the packed solver, which
-    # broadcasts internally) — the gather below needs (B,) arrays
+    # scalar lam/Lf are accepted — the gather below needs (B,) arrays
     lam = jnp.broadcast_to(jnp.asarray(lam, A.dtype), (B,))
     Lf = jnp.broadcast_to(jnp.asarray(Lf, A.dtype), (B,))
-    xs1, it1, dn1 = solve_lasso_batch_packed(
-        A, b, lam, Lf, tol, maxit=k1, restart=restart, interpret=interpret,
-    )
+    solve = partial(solve_lasso_batch, tol=tol, restart=restart,
+                    use_kernel=use_kernel, interpret=interpret)
+    xs1, it1, dn1 = solve(A, b, lam, Lf, maxit=k1)
     if k1 >= maxit:
         return xs1, it1, dn1
     n_unconverged = B - jnp.sum(dn1)
@@ -1702,15 +988,12 @@ def solve_lasso_batch_packed_tail(
     idx = order[:tail]
 
     def narrow(_):
-        xs2, it2, dn2 = solve_lasso_batch(
-            A[idx], b[idx], lam[idx], Lf[idx], tol, maxit=maxit - k1,
-            restart=restart, x0=xs1[idx],
-            use_kernel=not interpret, interpret=interpret,
-        )
+        xs2, it2, dn2 = solve(A[idx], b[idx], lam[idx], Lf[idx],
+                              maxit=maxit - k1, x0=xs1[idx])
         # keep the CERTIFIED phase-1 solution for fill lanes that were
-        # already done — the natural-layout kernel's reduction order can
-        # re-check an at-threshold residual just above tol, and phase 2
-        # must not replace a certified iterate with an uncertified one
+        # already done — the phase-2 re-check of an at-threshold residual
+        # can land just above tol, and phase 2 must not replace a
+        # certified iterate with an uncertified one
         xs2 = jnp.where(dn1[idx][:, None], xs1[idx], xs2)
         xs = xs1.at[idx].set(xs2)
         iters = it1.at[idx].add(jnp.where(dn1[idx], 0, it2))
@@ -1718,10 +1001,7 @@ def solve_lasso_batch_packed_tail(
         return xs, iters, done
 
     def wide(_):
-        xs2, it2, dn2 = solve_lasso_batch_packed(
-            A, b, lam, Lf, tol, maxit=maxit - k1, restart=restart,
-            x0=xs1, interpret=interpret,
-        )
+        xs2, it2, dn2 = solve(A, b, lam, Lf, maxit=maxit - k1, x0=xs1)
         xs = jnp.where(dn1[:, None], xs1, xs2)
         iters = jnp.where(dn1, it1, it1 + it2)
         done = dn1 | dn2

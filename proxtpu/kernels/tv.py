@@ -1,6 +1,6 @@
-"""Fused Pallas TPU kernel for batched TV-denoising Chambolle-Pock steps.
+"""Batched TV denoising by Chambolle-Pock.
 
-The TV workload (the flagship *new* workload family, BASELINE.md) solves
+The TV workload solves
 
     min_x  ||x - b||^2 / 2 + lam * ||grad x||_{2,1}
 
@@ -19,15 +19,11 @@ pointwise projection onto the radius-lam 2-ball (the Moreau route the
 generic driver takes through ``convex_conjugate(NormL21)`` — identical
 math).
 
-Under the generic vmapped driver every iteration streams ~10 image planes
-through HBM between XLA fusions; here one kernel invocation runs K
-iterations with x / y / b resident in VMEM, so HBM sees each plane once per
-K iterations.  All stencils are VPU shifts (``jnp.roll`` + boundary masks) —
-there is no contraction in this workload, so the MXU is idle by nature.
-
-Stopping rule matches the AFBA driver exactly:
-``||xbar - x||_inf + ||ybar - y||_inf <= tol`` sampled every K iterations
-(counts are an upper bound, like :func:`proxtpu.kernels.lasso.solve_lasso_batch_blocked`).
+:func:`solve_tv_batch` runs the step as plain XLA (the roll/mask stencil
+chain fuses into a few elementwise kernels) and advances ``iter_block``
+iterations per while-loop trip.  Stopping rule matches the AFBA driver:
+``||xbar - x||_inf + ||ybar - y||_inf <= tol``, sampled once per trip
+(counts are an upper bound).
 """
 
 from __future__ import annotations
@@ -37,182 +33,11 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-
-
-def _cp_body(x, yx, yy, b, g1, g2, lam, row_mask, col_mask):
-    """One CP iteration on fully-packed 2-D VMEM blocks.
-
-    The block is a (R, C) tile mosaic: C = P*W lanes holding P images side
-    by side (C = 128 when W divides 128 — zero lane waste), R rows holding
-    a stack of images' H-row strips.  The Neumann boundary masks
-    (``(r % H) == H-1`` rows, ``(c % W) == W-1`` cols zeroed) make every
-    roll's cross-seam leakage land on a zeroed element, so the packed
-    stencils are *exactly* the per-image stencils."""
-    # L^T y : negative divergence; the adjoint zeroes the last row/col of
-    # the dual field, and the backward difference's "prepend 0" is exactly
-    # roll(+1) once that boundary is zeroed (Grad2DOperator.rmatvec).
-    dxm = yx * row_mask
-    dym = yy * col_mask
-    div = (dxm - jnp.roll(dxm, 1, axis=0)) + (dym - jnp.roll(dym, 1, axis=1))
-    t = x + g1 * div                     # x - g1 * (-div) = x - g1 * L^T y
-    xbar = (t + g1 * b) / (1 + g1)       # prox of ||. - b||^2/2
-
-    mid = 2 * xbar - x
-    gx = (jnp.roll(mid, -1, axis=0) - mid) * row_mask
-    gy = (jnp.roll(mid, -1, axis=1) - mid) * col_mask
-    vx = yx + g2 * gx
-    vy = yy + g2 * gy
-    nrm = jnp.sqrt(vx * vx + vy * vy)
-    scale = jnp.where(nrm > lam, lam / jnp.maximum(nrm, 1e-30), 1.0)
-    ybx = vx * scale
-    yby = vy * scale
-
-    return xbar, ybx, yby
-
-
-def _cp_k_steps_kernel(K, H, W, per_lane_lam=False):
-    def kernel(b_ref, x_ref, yx_ref, yy_ref, g1_ref, g2_ref, lam_ref,
-               xo_ref, yxo_ref, yyo_ref, xpo_ref, yxpo_ref, yypo_ref):
-        R, C = b_ref.shape
-        dtype = b_ref.dtype
-        row_ix = jax.lax.broadcasted_iota(jnp.int32, (R, C), 0)
-        col_ix = jax.lax.broadcasted_iota(jnp.int32, (R, C), 1)
-        row_mask = ((row_ix % H) < H - 1).astype(dtype)
-        col_mask = ((col_ix % W) < W - 1).astype(dtype)
-        b = b_ref[...]
-        g1 = g1_ref[0, 0]     # shared stepsizes (scalars)
-        g2 = g2_ref[0, 0]
-        # lam enters only the (elementwise) dual-ball projection, so a
-        # per-image weight is just a packed (R, C) plane instead of a
-        # scalar — per-lane regularization sweeps keep kernel speed
-        lam = lam_ref[...] if per_lane_lam else lam_ref[0, 0]
-
-        # carry (state, previous state): the stopping residual is the last
-        # transition's fixed-point step |new - old|; both states are
-        # written out and the per-image reduction happens in XLA (cheap at
-        # block boundaries, and it keeps the kernel purely elementwise).
-        def step(_, carry):
-            x, yx, yy, _xp, _yxp, _yyp = carry
-            xn, yxn, yyn = _cp_body(
-                x, yx, yy, b, g1, g2, lam, row_mask, col_mask
-            )
-            return (xn, yxn, yyn, x, yx, yy)
-
-        x0, yx0, yy0 = x_ref[...], yx_ref[...], yy_ref[...]
-        x, yx, yy, xp, yxp, yyp = jax.lax.fori_loop(
-            0, K, step, (x0, yx0, yy0, x0, yx0, yy0)
-        )
-        xo_ref[...] = x
-        yxo_ref[...] = yx
-        yyo_ref[...] = yy
-        xpo_ref[...] = xp
-        yxpo_ref[...] = yxp
-        yypo_ref[...] = yyp
-
-    return kernel
-
-
-def _pack_factor(W, B):
-    """Images packed side-by-side along lanes: largest P with P*W <= 128,
-    P | B and W * P | 128-alignment-friendly (P a power of two)."""
-    P = 1
-    while P * 2 * W <= 128 and B % (P * 2) == 0:
-        P *= 2
-    return P
-
-
-def _pack(a, P):
-    """(B, H, W) -> (B//P * H, P*W): P images side by side per row strip."""
-    B, H, W = a.shape
-    G = B // P
-    return a.reshape(G, P, H, W).transpose(0, 2, 1, 3).reshape(G * H, P * W)
-
-
-def _unpack(m, B, H, W, P):
-    G = B // P
-    return m.reshape(G, H, P, W).transpose(0, 2, 1, 3).reshape(B, H, W)
-
-
-@partial(jax.jit, static_argnames=("K", "interpret", "lanes",
-                                   "per_lane_lam"))
-def fused_cp_k_steps(b, x, yx, yy, g1, g2, lam, K=8, interpret=False,
-                     lanes=None, per_lane_lam=False):
-    """Run K fused CP iterations for a batch of images in one kernel call.
-
-    Args:
-      b: (B, H, W) noisy images.  x: (B, H, W) primal iterates.
-      yx, yy: (B, H, W) dual-field components.  g1, g2: scalars (or
-        uniform (B,) vectors — the kernel uses lane 0; per-image stepsizes
-        take the pure-XLA path in :func:`solve_tv_batch`).  lam: scalar,
-        uniform (B,), or genuinely per-image (B,) — per-image weights are
-        packed into an (R, C) plane and applied elementwise in the dual
-        projection, so regularization sweeps stay on the kernel path.
-
-    Layout: the whole batch is packed into one 2-D tile mosaic — P=128//W
-    images side by side along the 128 lanes, image row-strips stacked along
-    sublanes — so there is no lane padding for W in {8,16,32,64,128} and
-    every op is one large uniform vector op.  Cross-image seams are
-    masked (see :func:`_cp_body`).
-
-    Returns (x, yx, yy, res) with res the last inner step's
-    ``||FPR_x||_inf + ||FPR_y||_inf`` per image.
-    """
-    B, H, W = b.shape
-    dtype = b.dtype
-    P = _pack_factor(W, B)
-    G = B // P
-    # rows per grid block: whole image strips, ~12 live (R, P*W) arrays
-    # within a 4 MB budget
-    max_rows = max(H, (4 * 1024 * 1024 // (12 * P * W * dtype.itemsize))
-                   // H * H)
-    Rb = G * H
-    while Rb > max_rows and Rb % 2 == 0 and (Rb // 2) % H == 0:
-        Rb //= 2
-
-    s2 = lambda v: jnp.asarray(v, dtype).reshape(-1)[:1].reshape(1, 1)
-    mspec = pl.BlockSpec((Rb, P * W), lambda i: (i, 0),
-                         memory_space=pltpu.VMEM)
-    sspec = pl.BlockSpec((1, 1), lambda i: (0, 0), memory_space=pltpu.VMEM)
-    shape2 = jax.ShapeDtypeStruct((G * H, P * W), dtype)
-
-    if per_lane_lam:
-        lam_in = _pack(
-            jnp.broadcast_to(
-                jnp.asarray(lam, dtype)[:, None, None], (B, H, W)
-            ), P,
-        )
-        lam_spec = mspec
-    else:
-        lam_in = s2(lam)
-        lam_spec = sspec
-
-    outs = pl.pallas_call(
-        _cp_k_steps_kernel(K, H, W, per_lane_lam=per_lane_lam),
-        grid=((G * H) // Rb,),
-        in_specs=[mspec, mspec, mspec, mspec, sspec, sspec, lam_spec],
-        out_specs=[mspec] * 6,
-        out_shape=[shape2] * 6,
-        cost_estimate=pl.CostEstimate(
-            flops=40 * K * B * H * W,
-            bytes_accessed=10 * B * H * W * dtype.itemsize,
-            transcendentals=K * B * H * W,
-        ),
-        interpret=interpret,
-    )(_pack(b, P), _pack(x, P), _pack(yx, P), _pack(yy, P),
-      s2(g1), s2(g2), lam_in)
-    xo, yxo, yyo, xp, yxp, yyp = (_unpack(m, B, H, W, P) for m in outs)
-    res = jnp.max(jnp.abs(xo - xp), axis=(1, 2)) + jnp.maximum(
-        jnp.max(jnp.abs(yxo - yxp), axis=(1, 2)),
-        jnp.max(jnp.abs(yyo - yyp), axis=(1, 2)),
-    )
-    return xo, yxo, yyo, res
 
 
 def reference_cp_step(b, x, yx, yy, g1, g2, lam):
-    """Pure-XLA reference of one fused CP iteration (same math, batched)."""
+    """One batched CP iteration with roll+mask stencils:
+    ``(xbar, ybar_x, ybar_y, res)``."""
     H, W = b.shape[1], b.shape[2]
     row_mask = (jnp.arange(H) < H - 1).astype(b.dtype)[None, :, None]
     col_mask = (jnp.arange(W) < W - 1).astype(b.dtype)[None, None, :]
@@ -254,17 +79,14 @@ def _diff_matrix(n, dtype):
 
 
 def mxu_cp_step(b, x, yx, yy, g1, g2, lam, Dh=None, Dw=None):
-    """One batched CP iteration with the gradient stencil as MXU matmuls.
+    """One batched CP iteration with the gradient stencil as matmuls.
 
     Identical math to :func:`reference_cp_step`, but the four roll+mask
     stencils are expressed as batched contractions against bidiagonal
     difference matrices:  ``grad = (Dh @ U, U @ Dw^T)`` and
-    ``L^T y = Dh^T @ Yx + Yy @ Dw`` — an MXU-shaped rewrite of the
-    elementwise chain (VERDICT r2 weak #5: does routing the stencil to the
-    systolic array beat the ~20 GB/s elementwise-chain per-trip floor?).
-    Contractions run at the library matmul precision
-    (:func:`proxtpu.utils.precision.get_matmul_precision`) so bf16 MXU
-    passes cannot stall the fixed point.
+    ``L^T y = Dh^T @ Yx + Yy @ Dw``.  Contractions run at the library
+    matmul precision (:func:`proxtpu.utils.precision.get_matmul_precision`)
+    so reduced-precision passes cannot stall the fixed point.
     """
     from ..utils.precision import get_matmul_precision
 
@@ -309,69 +131,33 @@ def default_tv_stepsizes(dtype=jnp.float32):
     return 1.0 / nmL, 0.99 / nmL
 
 
-def _uniform_concrete(v):
-    """True if ``v`` is statically known to be lane-uniform: a scalar
-    (traced or not), or a concrete array whose elements are all equal."""
-    if v is None or jnp.ndim(v) == 0:
-        return True
-    try:
-        arr = np.asarray(v)
-    except Exception:  # traced non-scalar: uniformity unknown
-        return False
-    return arr.size > 0 and bool(np.ptp(arr) == 0)
-
-
+@partial(
+    jax.jit,
+    static_argnames=("maxit", "iter_block", "return_dual", "formulation"),
+)
 def solve_tv_batch(b, lam, tol, maxit=5000, iter_block=8, gamma1=None,
-                   gamma2=None, use_kernel=True, interpret=False,
-                   lanes=None, return_dual=False, formulation="roll",
+                   gamma2=None, return_dual=False, formulation="roll",
                    x0=None, y0=None):
-    """Batched TV denoising by iteration-blocked fused Chambolle-Pock.
+    """Batched TV denoising by iteration-blocked Chambolle-Pock.
 
     Matches the generic vmapped AFBA/CP driver's trajectory and stopping
-    rule (``||FPR_x||_inf + ||FPR_y||_inf <= tol``); convergence is sampled
-    every ``iter_block`` iterations, so per-lane counts are an upper bound
-    (lanes are never reported converged before they are), and the iteration
-    count includes the init step — iteration 1 — exactly like the driver.
+    rule (``||FPR_x||_inf + ||FPR_y||_inf <= tol``); one while-loop trip
+    runs ``iter_block`` iterations and convergence is sampled at the end
+    of each trip, so per-lane counts are an upper bound (lanes are never
+    reported converged before they are), and the iteration count includes
+    the init step — iteration 1 — exactly like the driver.
 
     ``lam``/``gamma1``/``gamma2`` may be scalars or per-image (B,) vectors.
-    Per-image ``lam`` (a regularization sweep) stays on the fused kernel —
-    the weight enters only the elementwise dual projection, so it rides
-    along as a packed (R, C) plane.  Non-uniform *stepsizes* would change
-    the packed update itself, so they are routed to the pure-XLA step
-    (same math, per-lane broadcasting) automatically.
 
-    ``formulation`` selects the pure-XLA step used when ``use_kernel`` is
-    False (or forced off by non-uniform stepsizes): ``"roll"`` (shift+mask
-    stencils) or ``"mxu"`` (:func:`mxu_cp_step`, bidiagonal-matmul
-    stencils).
+    ``formulation`` selects the step: ``"roll"`` (shift+mask stencils,
+    :func:`reference_cp_step`) or ``"mxu"`` (:func:`mxu_cp_step`,
+    bidiagonal-matmul stencils).
 
     Returns ``(x, iters, done)``, or ``((x, y), iters, done)`` with the
     (B, 2, H, W) dual field when ``return_dual=True`` — the same solution
     structure as the generic AFBA driver's ``default_solution``
     (``(xbar, ybar)``), which the kernel dispatch layer requires.
     """
-    per_lane_lam = not _uniform_concrete(lam)
-    if use_kernel and not all(
-        _uniform_concrete(v) for v in (gamma1, gamma2)
-    ):
-        use_kernel = False
-    return _solve_tv_batch_impl(
-        b, lam, tol, maxit=maxit, iter_block=iter_block, gamma1=gamma1,
-        gamma2=gamma2, use_kernel=use_kernel, interpret=interpret,
-        lanes=lanes, return_dual=return_dual, formulation=formulation,
-        per_lane_lam=per_lane_lam, x0=x0, y0=y0,
-    )
-
-
-@partial(
-    jax.jit,
-    static_argnames=("maxit", "iter_block", "use_kernel", "interpret",
-                     "lanes", "return_dual", "formulation", "per_lane_lam"),
-)
-def _solve_tv_batch_impl(b, lam, tol, maxit=5000, iter_block=8, gamma1=None,
-                         gamma2=None, use_kernel=True, interpret=False,
-                         lanes=None, return_dual=False, formulation="roll",
-                         per_lane_lam=False, x0=None, y0=None):
     B, H, W = b.shape
     dtype = b.dtype
     g1d, g2d = default_tv_stepsizes(dtype)
@@ -383,33 +169,25 @@ def _solve_tv_batch_impl(b, lam, tol, maxit=5000, iter_block=8, gamma1=None,
     )
     lam_v = jnp.broadcast_to(jnp.asarray(lam, dtype), (B,))
 
-    if use_kernel:
-        kstep = partial(fused_cp_k_steps, interpret=interpret, lanes=lanes,
-                        per_lane_lam=per_lane_lam)
-        step_fn = lambda b_, x, yx, yy, K: kstep(
-            b_, x, yx, yy, g1, g2, lam_v, K=K
+    if formulation == "mxu":
+        Dh = _diff_matrix(H, dtype)
+        Dw = _diff_matrix(W, dtype)
+        one_step = lambda b_, x, yx, yy: mxu_cp_step(
+            b_, x, yx, yy, g1, g2, lam_v, Dh=Dh, Dw=Dw
         )
     else:
-        if formulation == "mxu":
-            Dh = _diff_matrix(H, dtype)
-            Dw = _diff_matrix(W, dtype)
-            one_step = lambda b_, x, yx, yy: mxu_cp_step(
-                b_, x, yx, yy, g1, g2, lam_v, Dh=Dh, Dw=Dw
-            )
-        else:
-            one_step = lambda b_, x, yx, yy: reference_cp_step(
-                b_, x, yx, yy, g1, g2, lam_v
-            )
+        one_step = lambda b_, x, yx, yy: reference_cp_step(
+            b_, x, yx, yy, g1, g2, lam_v
+        )
 
-        def step_fn(b_, x, yx, yy, K):
-            def one(_, c):
-                x, yx, yy, _ = c
-                return one_step(b_, x, yx, yy)
+    def step_fn(b_, x, yx, yy, K):
+        def one(_, c):
+            x, yx, yy, _ = c
+            return one_step(b_, x, yx, yy)
 
-            return jax.lax.fori_loop(
-                0, K, one,
-                (x, yx, yy, jnp.zeros((B,), dtype)),
-            )
+        return jax.lax.fori_loop(
+            0, K, one, (x, yx, yy, jnp.zeros((B,), dtype)),
+        )
 
     # warm start: x0 is the primal image, y0 the (B, 2, H, W) dual field
     # (the shape return_dual emits, so a previous solve re-enters directly)

@@ -2,7 +2,7 @@
 
 The reference accepts anything supporting ``mul!``/``adjoint`` as the ``A``
 argument of f(Ax)+g(x) problems (``src/utilities/fb_tools.jl:21``,
-``src/algorithms/panoc.jl:42`` with default ``A = I``).  The TPU-native
+``src/algorithms/panoc.jl:42`` with default ``A = I``).  The JAX
 counterpart is a tiny pytree-operator protocol:
 
 * ``matvec(x)``  — A x
@@ -54,7 +54,7 @@ class ZeroOperator:
 
 @proxclass
 class MatrixOperator:
-    """Dense matrix operator; matvecs map straight onto the MXU."""
+    """Dense matrix operator; matvecs are plain (batched) matrix products."""
 
     A: object
 

@@ -4,9 +4,9 @@ These are *new* capabilities relative to the reference, which has no
 parallelism of any kind (SURVEY.md §2.6).  Three orthogonal axes:
 
 * **batch** (the domain's "DP"): vmap a stacked pytree of problem instances
-  — thousands of lasso/QP solves per chip, per-lane convergence masks;
+  — thousands of lasso/QP solves per device, per-lane convergence masks;
 * **sharded_ops** ("TP"): shard a huge A over mesh axes; XLA emits the
-  psum/all-gather collectives for ``A x`` / ``A^H y`` over ICI;
+  psum/all-gather collectives for ``A x`` / ``A^H y``;
 * **consensus** ("PP/EP" analogue): consensus-ADMM over blocks sharded
   across devices, coupling through one mean collective per iteration.
 """
@@ -54,10 +54,8 @@ from .warm import (
 from .stream import stream_solve
 from .sharded_kernels import (
     default_dp_mesh,
-    sharded_solve_lasso_batch_packed,
     sharded_solve_box_qp_batch,
     sharded_solve_lasso_batch,
-    sharded_solve_lasso_batch_blocked,
     sharded_solve_lasso_multirhs,
     sharded_solve_tv_batch,
 )
@@ -97,8 +95,6 @@ __all__ = [
     "default_dp_mesh",
     "sharded_solve_box_qp_batch",
     "sharded_solve_lasso_batch",
-    "sharded_solve_lasso_batch_packed",
-    "sharded_solve_lasso_batch_blocked",
     "sharded_solve_lasso_multirhs",
     "sharded_solve_tv_batch",
     "stream_solve",

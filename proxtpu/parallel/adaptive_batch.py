@@ -1,10 +1,10 @@
 """Work-optimal batched adaptive (backtracking) FB / FISTA.
 
 Three ways to run Armijo-backtracking solvers over a batch, in increasing
-TPU-nativeness:
+fit to a batched accelerator:
 
-1. nested ``while_loop`` under vmap — exact but compiles pathologically on
-   TPU (minutes even at tiny shapes);
+1. nested ``while_loop`` under vmap — exact but can compile
+   pathologically slowly (minutes even at tiny shapes);
 2. ``backtrack_limit=T`` (:func:`proxtpu.utils.fb_tools.backtrack_stepsize`)
    — bounded masked ``fori_loop``; compiles fast but pays T masked trial
    evaluations per iteration;
@@ -68,7 +68,7 @@ def _flat_adaptive_run(
     eps = eps_of(x0)
 
     # Shared-marked f/g map with in_axes=None (lane-invariant data — e.g. a
-    # shared design matrix makes the batched gradient one MXU matmul)
+    # shared design matrix makes the batched gradient one matmul)
     vvg = jax.vmap(
         lambda fi, u: value_and_gradient(unwrap_shared(fi), u),
         in_axes=(batch_axes(f), 0),

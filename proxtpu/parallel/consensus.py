@@ -4,13 +4,13 @@ block-separable problems.
 Solves  minimize  sum_i f_i(x) + g(x)  by consensus ADMM: each of B blocks
 (e.g. row-blocks of a huge least-squares) holds a local copy x_i advanced by
 its own prox, coupled through the consensus average (SURVEY.md §2.6: the
-consensus-averaging collective is the TPU analogue of the reference's
+consensus-averaging collective is the batched analogue of the reference's
 nonexistent distributed layer).
 
 Layout: block quantities are stacked on a leading axis (B, ...) which can be
 sharded over a mesh axis (``shard_batch``); the per-block proxes vmap into
-one batched MXU op, and ``jnp.mean(x, 0)`` over the sharded axis compiles to
-a local partial mean + psum over ICI.  The iteration plugs into the standard
+one batched op, and ``jnp.mean(x, 0)`` over the sharded axis compiles to
+a local partial mean + psum over the device interconnect.  The iteration plugs into the standard
 jitted while-loop driver.
 
     x_i <- prox_{gamma f_i}(z - u_i)

@@ -1,11 +1,11 @@
 """Multi-host initialization and mesh construction.
 
-On a multi-host TPU slice (or multi-slice over DCN), JAX needs one
-``jax.distributed.initialize()`` per process before devices are visible;
-after that, meshes span *all* hosts' devices and the same jitted solver
-programs run SPMD with XLA collectives over ICI (intra-slice) / DCN
-(cross-slice) — no code changes in the solvers (SURVEY.md §5:
-"communication backend").
+On a multi-host GPU cluster, JAX needs one ``jax.distributed.initialize()``
+per process before devices are visible; after that, meshes span *all*
+hosts' devices and the same jitted solver programs run SPMD with XLA's
+NCCL collectives over NVLink (within a host) and the network (across
+hosts) — no code changes in the solvers (SURVEY.md §5: "communication
+backend").
 
 This module is exercised in CI only in its single-process form (no
 multi-host hardware in the dev environment); the mesh-building logic is the
@@ -24,9 +24,9 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
     """Initialize multi-host JAX.
 
     With all-default arguments this is a deliberate no-op (safe in
-    single-process dev environments).  Pass ``auto=True`` on a real
-    multi-host TPU slice to run the bare ``jax.distributed.initialize()``
-    auto-detection (GCE/GKE metadata path); explicit coordinator
+    single-process dev environments).  Pass ``auto=True`` on a cluster
+    JAX can detect (e.g. a SLURM allocation) to run the bare
+    ``jax.distributed.initialize()`` auto-detection; explicit coordinator
     address / process counts (for manual clusters) take precedence over
     ``auto``.  Returns
     ``jax.process_count()``.
@@ -45,12 +45,12 @@ def initialize_distributed(coordinator_address=None, num_processes=None,
 
 
 def global_mesh(axis_shape, axis_names, devices=None):
-    """Build a mesh over all global devices (all hosts' chips).
+    """Build a mesh over all global devices (all hosts' cards).
 
     ``axis_shape`` is the logical mesh shape, e.g. ``(num_hosts, 8)`` with
-    names ``("dp", "tp")`` so data-parallel traffic crosses DCN while
-    operator shards ride ICI — lay the fast-changing axis innermost so
-    collectives over it stay on-chip interconnect.
+    names ``("dp", "tp")`` so data-parallel traffic crosses hosts while
+    operator shards ride NVLink — lay the fast-changing axis innermost so
+    collectives over it stay within a host.
     """
     devs = np.asarray(devices if devices is not None else jax.devices())
     return Mesh(devs.reshape(axis_shape), axis_names)

@@ -17,7 +17,7 @@ The trick that keeps the work uniform: the per-trip forward matvec input is
 *selected per lane* — a committing lane feeds its fresh quasi-Newton
 direction ``d`` (producing ``A(x+d)`` for the next tau=1 trial), a halving
 lane feeds the lincomb endpoint ``z`` (producing the lazily-needed ``Az``)
-— so one batched MXU matmul serves both phases.  The quadratic-f
+— so one batched matmul serves both phases.  The quadratic-f
 interpolation shortcut of the reference (``panoc.jl:217-237``) is
 replicated bit-for-bit: halving lanes interpolate ``f`` and its gradient
 along the segment from cached endpoint quantities instead of re-evaluating.
@@ -93,16 +93,16 @@ def _blocked_while(cond, body, carry, check_every):
     finishes.
 
     Exactness caveat: on CPU the blocked program is bit-identical to K=1
-    (pinned in ``tests/test_flat_ls.py``); on TPU, XLA compiles the
+    (pinned in ``tests/test_flat_ls.py``); on an accelerator, XLA may compile the
     fori-in-while body with different fusion/reassociation, so knife-edge
     accept tests can flip (counts drift +-1, solutions by last-ULP) — the
     same compilation-level caveat as batch-size-dependent einsum tiling.
 
-    Measured at the flagship 256x200x400 lasso (1x v5e, same process,
-    BASELINE.md): adaptive-FISTA machine +68% at K=8 (its trip is one
-    cheap matvec pair — the while-trip quantum dominates), flat PANOC
-    +12%, flat ZeroFPR -16% (oracle-heavy trips; blocking only adds tail
-    waste).  Default stays 1; `BatchedAlgorithm(check_every=K)` threads K
+    Blocking pays where a trip is cheap next to the fixed per-trip cost
+    (the adaptive-FISTA machine: one matvec pair per trip) and can lose
+    where trips are oracle-heavy (blocking then only adds tail waste;
+    ``benchmarks/flat_ls_bench.py --blocking`` measures it).  Default
+    stays 1; `BatchedAlgorithm(check_every=K)` threads K
     into every flat runner.
     """
     if check_every < 1:
@@ -120,7 +120,7 @@ def _blocked_while(cond, body, carry, check_every):
 
 def _make_vmapped(f, A, g, directions):
     # Shared-marked f/A/g map with in_axes=None (lane-invariant): the
-    # per-lane matvec against a Shared A lowers to ONE (B,n)@(n,m) MXU
+    # per-lane matvec against a Shared A lowers to ONE (B,n)@(n,m)
     # matmul instead of a batched GEMV stream
     ax_f, ax_A, ax_g = batch_axes(f), batch_axes(A), batch_axes(g)
     vvg = jax.vmap(

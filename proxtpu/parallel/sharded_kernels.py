@@ -1,15 +1,15 @@
-"""Multi-device kernel paths: the fused lasso/box-QP solvers under shard_map.
+"""Multi-device batched solvers: the specialized solvers under shard_map.
 
-The fused Pallas solvers (:mod:`proxtpu.kernels.lasso`,
-:mod:`proxtpu.kernels.box_qp`) run one chip's batch; on a pod slice the
-scenario batch is data-parallel over the ``dp`` mesh axis and each device
-should run the SAME fused kernel on its local lanes.  GSPMD cannot partition
-a ``pallas_call`` automatically, so these wrappers place the whole solver
-body (while-loop, kernel calls, convergence bookkeeping) inside
-``jax.shard_map``: every device iterates on its own lanes and stops when
-*its* lanes converge — no per-trip cross-device collective at all, which is
-exactly the right communication structure for scenario batching (lanes are
-independent; the only "collective" is the caller's final gather).
+The batched solvers of :mod:`proxtpu.kernels` run one device's batch; on a
+multi-GPU host the scenario batch is data-parallel over the ``dp`` mesh
+axis and each device runs the SAME solver on its local lanes.  GSPMD
+cannot partition a ``pallas_call`` automatically, so these wrappers place
+the whole solver body (while-loop, step calls, convergence bookkeeping)
+inside ``jax.shard_map``: every device iterates on its own lanes and stops
+when *its* lanes converge — no per-trip cross-device collective at all,
+which is exactly the right communication structure for scenario batching
+(lanes are independent; the only "collective" is the caller's final
+gather).
 
 Per-lane semantics are identical to the single-device solvers: the
 while-loop's ``jnp.all(done)`` becomes a *local* all, so a device whose
@@ -17,8 +17,7 @@ lanes finish early stops early instead of spinning until the global slowest
 lane — per-lane iterates, counts and flags are unchanged (pinned by
 ``tests/test_sharding.py``).
 
-The reference has no distributed story at all (SURVEY.md §2.6); the scaling
-contract here is BASELINE.json's >= 80% weak-scaling efficiency target.
+The reference has no distributed story at all (SURVEY.md §2.6).
 """
 
 from __future__ import annotations
@@ -43,12 +42,13 @@ def default_dp_mesh(n_devices=None, axis="dp"):
 
 
 def sharded_solve_lasso_batch(
-    A, b, lam, Lf, tol, *, mesh, axis="dp", maxit=1000, use_kernel=True,
+    A, b, lam, Lf, tol, *, mesh, axis="dp", maxit=1000, use_kernel=None,
     interpret=False, restart=False, x0=None,
 ):
     """:func:`proxtpu.kernels.lasso.solve_lasso_batch` data-parallel over
     ``axis``: A (B, M, N), b (B, M), lam/Lf (B,) sharded on the batch dim,
-    each device solving its own lanes with the fused one-step kernel.
+    each device solving its own lanes (``use_kernel``/``interpret`` choose
+    the step as in the single-device solver).
 
     B must be divisible by the mesh axis size.  Returns (z, iters, done)
     with the same sharding on the batch dim.
@@ -85,98 +85,12 @@ def sharded_solve_lasso_batch(
     )(A, b, lam, Lf)
 
 
-def sharded_solve_lasso_batch_packed(
-    A, b, lam, Lf, tol, *, mesh, axis="dp", maxit=1000, interpret=False,
-    restart=False, x0=None, pack=None, mf=None,
-):
-    """:func:`proxtpu.kernels.lasso.solve_lasso_batch_packed` (zero-lane-
-    padding packed A stream) data-parallel over ``axis``: each device
-    packs and solves its own lanes.  With ``pack=None`` (auto) the solver
-    falls back to the natural layout when the per-device batch isn't
-    divisible by the pack count; an *explicit* ``pack`` must divide the
-    per-device batch (validated here — inside ``shard_map`` it would
-    surface as an opaque reshape error)."""
-    from ..kernels.lasso import solve_lasso_batch_packed
-
-    nd = _mesh_axis_size(mesh, axis)
-    if A.shape[0] % nd:
-        raise ValueError(
-            f"batch {A.shape[0]} not divisible by mesh axis {axis}={nd}"
-        )
-    if pack is not None and pack > 1 and (A.shape[0] // nd) % pack:
-        raise ValueError(
-            f"explicit pack={pack} does not divide the per-device batch "
-            f"{A.shape[0] // nd} (= {A.shape[0]} / {axis}={nd}); use "
-            f"pack=None for automatic selection with natural-layout "
-            f"fallback"
-        )
-
-    body = partial(
-        solve_lasso_batch_packed, tol=tol, maxit=maxit,
-        interpret=interpret, restart=restart, pack=pack, mf=mf,
-    )
-    if x0 is not None:
-        return jax.shard_map(
-            lambda A_, b_, l_, L_, x_: body(A_, b_, l_, L_, x0=x_),
-            mesh=mesh,
-            in_specs=(P(axis, None, None), P(axis, None), P(axis), P(axis),
-                      P(axis, None)),
-            out_specs=(P(axis, None), P(axis), P(axis)),
-            check_vma=False,
-        )(A, b, lam, Lf, x0)
-    return jax.shard_map(
-        lambda A_, b_, l_, L_: body(A_, b_, l_, L_),
-        mesh=mesh,
-        in_specs=(P(axis, None, None), P(axis, None), P(axis), P(axis)),
-        out_specs=(P(axis, None), P(axis), P(axis)),
-        check_vma=False,
-    )(A, b, lam, Lf)
-
-
-def sharded_solve_lasso_batch_blocked(
-    A, b, lam, Lf, tol, *, mesh, axis="dp", maxit=2000, iter_block=8,
-    interpret=False, restart=False, x0=None,
-):
-    """:func:`proxtpu.kernels.lasso.solve_lasso_batch_blocked` (K-step
-    VMEM-resident kernel) data-parallel over ``axis``."""
-    from ..kernels.lasso import solve_lasso_batch_blocked
-
-    nd = _mesh_axis_size(mesh, axis)
-    if A.shape[0] % nd:
-        raise ValueError(
-            f"batch {A.shape[0]} not divisible by mesh axis {axis}={nd}"
-        )
-
-    body = partial(
-        solve_lasso_batch_blocked, tol=tol, maxit=maxit,
-        iter_block=iter_block, interpret=interpret, restart=restart,
-    )
-    if x0 is not None:
-        return jax.shard_map(
-            lambda A_, b_, l_, L_, x_: body(A_, b_, l_, L_, x0=x_),
-            mesh=mesh,
-            in_specs=(P(axis, None, None), P(axis, None), P(axis), P(axis),
-                      P(axis, None)),
-            out_specs=(P(axis, None), P(axis), P(axis)),
-            check_vma=False,
-        )(A, b, lam, Lf, x0)
-    return jax.shard_map(
-        lambda A_, b_, l_, L_: body(A_, b_, l_, L_),
-        mesh=mesh,
-        in_specs=(P(axis, None, None), P(axis, None), P(axis), P(axis)),
-        out_specs=(P(axis, None), P(axis), P(axis)),
-        # pallas_call inside shard_map has no varying-mesh-axes annotation;
-        # every out is dp-sharded by construction
-        check_vma=False,
-    )(A, b, lam, Lf)
-
-
 def sharded_solve_lasso_multirhs(
     A, Bmat, lam, Lf, tol, *, mesh, axis="dp", maxit=2000, iter_block=1,
     restart=False, x0=None,
 ):
     """:func:`proxtpu.kernels.lasso.solve_lasso_multirhs` (shared design
-    matrix, MXU matmul formulation) with the RHS batch sharded over
+    matrix, matmul formulation) with the RHS batch sharded over
     ``axis`` and A replicated on every device — each device runs the
     (B_local, N) @ (N, M) matmuls on its own lanes."""
     from ..kernels.lasso import solve_lasso_multirhs
@@ -195,7 +109,7 @@ def sharded_solve_lasso_multirhs(
     if Lf_s.ndim != 0:
         # shared-A formulation: one Lipschitz constant; a per-lane (B,)
         # value would otherwise surface as an opaque spec mismatch
-        # inside shard_map (r5 review)
+        # inside shard_map
         raise ValueError(
             f"Lf must be a scalar for the shared-A multirhs wrapper, "
             f"got shape {Lf_s.shape}"
@@ -216,19 +130,16 @@ def sharded_solve_lasso_multirhs(
         mesh=mesh,
         in_specs=(P(None, None), P(axis, None), P(axis), P()),
         out_specs=(P(axis, None), P(axis), P(axis)),
-        # pallas_call inside shard_map has no varying-mesh-axes annotation;
-        # every out is dp-sharded by construction
         check_vma=False,
     )(A, Bmat, lam_v, Lf_s)
 
 
 def sharded_solve_box_qp_batch(
-    Q, q, lo, hi, Lip, tol, *, mesh, axis="dp", maxit=20_000,
-    use_kernel=True, interpret=False, iter_block=None, x0=None,
+    Q, q, lo, hi, Lip, tol, *, mesh, axis="dp", maxit=20_000, x0=None,
 ):
-    """:func:`proxtpu.kernels.box_qp.solve_box_qp_batch` (or its K-blocked
-    variant when ``iter_block`` is given) data-parallel over ``axis``."""
-    from ..kernels.box_qp import solve_box_qp_batch, solve_box_qp_batch_blocked
+    """:func:`proxtpu.kernels.box_qp.solve_box_qp_batch` data-parallel over
+    ``axis``."""
+    from ..kernels.box_qp import solve_box_qp_batch
 
     nd = _mesh_axis_size(mesh, axis)
     if Q.shape[0] % nd:
@@ -239,22 +150,15 @@ def sharded_solve_box_qp_batch(
         if np.ndim(v) != 0:
             # lo/hi ride the closure REPLICATED; a per-lane (B,) value
             # would silently apply the full-batch vector to every local
-            # shard (or break broadcasting) inside shard_map (r5 review)
+            # shard (or break broadcasting) inside shard_map
             raise ValueError(
                 f"{name} must be lane-uniform (scalar) in the sharded "
                 f"wrapper, got shape {np.shape(v)}"
             )
 
-    if iter_block is not None:
-        body = lambda Q_, q_, L_, **kw: solve_box_qp_batch_blocked(
-            Q_, q_, lo, hi, L_, tol, maxit=maxit, iter_block=iter_block,
-            interpret=interpret, **kw,
-        )
-    else:
-        body = lambda Q_, q_, L_, **kw: solve_box_qp_batch(
-            Q_, q_, lo, hi, L_, tol, maxit=maxit, use_kernel=use_kernel,
-            interpret=interpret, **kw,
-        )
+    body = lambda Q_, q_, L_, **kw: solve_box_qp_batch(
+        Q_, q_, lo, hi, L_, tol, maxit=maxit, **kw,
+    )
     if x0 is not None:
         return jax.shard_map(
             lambda Q_, q_, L_, x_: body(Q_, q_, L_, x0=x_),
@@ -269,26 +173,18 @@ def sharded_solve_box_qp_batch(
         mesh=mesh,
         in_specs=(P(axis, None, None), P(axis, None), P(axis)),
         out_specs=(P(axis, None), P(axis), P(axis)),
-        # pallas_call inside shard_map has no varying-mesh-axes annotation;
-        # every out is dp-sharded by construction
         check_vma=False,
     )(Q, q, Lip)
 
 
 def sharded_solve_tv_batch(
     b, lam, tol, *, mesh, axis="dp", maxit=5000, iter_block=8,
-    gamma1=None, gamma2=None, use_kernel=True, interpret=False,
-    formulation="roll", x0=None, y0=None,
+    gamma1=None, gamma2=None, formulation="roll", x0=None, y0=None,
 ):
-    """:func:`proxtpu.kernels.tv.solve_tv_batch` (fused Chambolle-Pock TV
+    """:func:`proxtpu.kernels.tv.solve_tv_batch` (batched Chambolle-Pock TV
     denoiser) data-parallel over ``axis``: b (B, H, W) and a scalar or
     per-image (B,) ``lam`` sharded on the batch dim, each device denoising
-    its own images with the packed kernel.
-
-    Per-image ``lam`` stays on the kernel exactly like the single-device
-    wrapper (inside shard_map the local lam is traced, so the
-    per-lane-plane path is always taken — same math, pinned by
-    ``tests/test_sharding.py``).  Stepsizes (``gamma1``/``gamma2``) must be
+    its own images.  Stepsizes (``gamma1``/``gamma2``) must be
     lane-uniform here; they ride the closure replicated.
     """
     import jax.numpy as jnp
@@ -304,7 +200,7 @@ def sharded_solve_tv_batch(
         if v is not None and np.ndim(v) != 0:
             # stepsizes ride the closure replicated (docstring contract);
             # validate instead of surfacing an opaque broadcast error
-            # deep inside the sharded trace (r5 review)
+            # deep inside the sharded trace
             raise ValueError(
                 f"{name} must be lane-uniform (scalar) in the sharded "
                 f"wrapper, got shape {np.shape(v)}"
@@ -313,8 +209,7 @@ def sharded_solve_tv_batch(
 
     body = partial(
         solve_tv_batch, tol=tol, maxit=maxit, iter_block=iter_block,
-        gamma1=gamma1, gamma2=gamma2, use_kernel=use_kernel,
-        interpret=interpret, formulation=formulation,
+        gamma1=gamma1, gamma2=gamma2, formulation=formulation,
     )
     args = [b, lam_v]
     specs = [P(axis, None, None), P(axis)]
@@ -336,7 +231,5 @@ def sharded_solve_tv_batch(
         mesh=mesh,
         in_specs=tuple(specs),
         out_specs=(P(axis, None, None), P(axis), P(axis)),
-        # pallas_call inside shard_map has no varying-mesh-axes annotation;
-        # every out is dp-sharded by construction
         check_vma=False,
     )(*args)

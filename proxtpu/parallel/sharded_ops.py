@@ -1,10 +1,10 @@
 """Sharded linear operators: the "tensor parallelism" of this domain.
 
 The reference's only operator contract is a single-core ``mul!``
-(``src/utilities/fb_tools.jl:21``).  On TPU the two matvecs ``A x`` and
+(``src/utilities/fb_tools.jl:21``).  On an accelerator mesh the two matvecs ``A x`` and
 ``A^H y`` are where FLOPs and communication live (SURVEY.md §5): shard ``A``
 over a mesh axis with ``jax.sharding.NamedSharding`` and let GSPMD/XLA insert
-the collectives over ICI — ``A x`` with row-sharded A is a local matmul
+the collectives (NCCL over NVLink on a multi-GPU host) — ``A x`` with row-sharded A is a local matmul
 producing a row-sharded result; ``A^H y`` is a local matmul followed by a
 ``psum`` (all-reduce) that XLA emits automatically.  Global reductions for
 stopping criteria (norms of sharded residuals) are likewise partial
@@ -26,7 +26,7 @@ from ..utils.precision import pdot
 
 
 def make_mesh(axis_sizes, axis_names):
-    """Build a Mesh from the available devices (real TPUs or the virtual CPU
+    """Build a Mesh from the available devices (real GPUs or the virtual CPU
     devices created by --xla_force_host_platform_device_count)."""
     import numpy as np
 
@@ -78,7 +78,7 @@ def shard_matrix_operator(A, mesh, row_axis=None, col_axis=None):
 
     Typical use for a tall A (m >> n): ``row_axis='tp'`` — each device holds
     a horizontal stripe of A; the FISTA/PANOC step's ``A^H grad`` becomes a
-    local matmul + psum over ICI.
+    local matmul + psum over the interconnect.
     """
     A = jnp.asarray(A)
     sharding = NamedSharding(mesh, P(row_axis, col_axis))

@@ -1,29 +1,27 @@
 """Precision warm-starting: solve cheap in f32, polish to tolerance in f64.
 
-TPU f64 is software-emulated by XLA (1-3x per-iteration cost, BASELINE.md
-round 3) and a cold f64 solve to a reference-grade tolerance re-pays, at
-emulated cost, the several hundred iterations an f32 solve covers natively.
+A float64 iteration costs more than a float32 one (twice the bytes of
+every operand, and a lower float64 rate on most accelerators), and a cold
+f64 solve to a reference-grade tolerance re-pays, at that cost, the
+several hundred iterations an f32 solve covers.
 Two-stage warm-starting removes that waste: stage 1 runs the batched solve
 in float32 to an f32-attainable tolerance (``warm_tol``, default 1.2e-5),
 stage 2 re-launches the SAME algorithm in the request dtype from the warm
 iterate and polishes to ``tol``.  Stage 2 is an ordinary fresh solve — its
 momentum/line-search state initializes from scratch, which doubles as the
-Nesterov restart the round-3 mixed-precision study measured as the actual
-benefit of two-staging (BASELINE.md: "the bf16-A stream saves nothing per
-iteration... the mixed solver's 1.2x was entirely its restart at the stage
-boundary").
+Nesterov restart that is much of the benefit of two-staging.
 
 The final stopping criterion is stage 2's, evaluated entirely in the
 request dtype — solution quality is identical to a cold f64 solve at the
-same tolerance (parity asserted in ``tests/test_warm.py`` and in the
-committed chip benchmark ``benchmarks/x64_batched.py``).
+same tolerance (parity asserted in ``tests/test_warm.py`` and in
+``benchmarks/x64_batched.py``).
 
 This is the batched-XLA-path counterpart of the fused kernels'
 ``solve_lasso_batch_mixed`` (bf16 -> f32, ``proxtpu/kernels/lasso.py``);
-the Pallas kernels themselves stay f32 by design, so reference tolerances
+the fused lasso kernel itself is float32-only, so reference tolerances
 (1e-6 .. 1e-8) always take this route.  Reference anchor: the tol=1e-6
 oracle of ``/root/reference/test/problems/test_lasso_small.jl:42-53`` is
-the accuracy class this path exists to serve on chip.
+the accuracy class this path exists to serve on an accelerator.
 """
 
 from __future__ import annotations
@@ -84,14 +82,9 @@ class WarmStartedBatchedAlgorithm:
     ``warm_tol`` defaults to 1.2e-5 — just above the f32 FB-residual noise
     floor measured at the flagship scale (tol=1e-5 converges every lane in
     f32), so stage 1 extracts everything f32 can reach and stage 2 only
-    polishes.  The committed default-run record
-    (``benchmarks/x64_batched.py``, ``results_x64_batched.jsonl``): warm
-    1622/337 p/s vs cold f64 406/78 at tol 1e-6/1e-8, i.e. ~4.0-4.3x cold.
-    The ``warm_tol`` sweep behind the default (committed artifact rows
-    ``sweep_*`` in the same jsonl, from
-    ``x64_batched.py --warm-tol-sweep``): 1e-4 -> 1002/188 p/s, 3e-5 ->
-    1385/285, 1.2e-5 -> 1777/352 vs cold 424/79.5 — monotone down to the
-    noise floor, hence the 1.2e-5 choice.  If
+    polishes (``benchmarks/x64_batched.py`` measures warm against cold;
+    ``--warm-tol-sweep`` sweeps ``warm_tol`` over 1e-4, 3e-5 and
+    1.2e-5).  If
     stage 1 stalls above ``warm_tol`` on a harder problem class (f32
     attainability is problem-dependent), it exits at ``warm_maxit`` and
     stage 2 still finishes the job — correctness never depends on the
@@ -100,12 +93,10 @@ class WarmStartedBatchedAlgorithm:
     For tolerances at or below 1e-8, compose with adaptive restart —
     ``extrapolation_sequence=AdaptiveRestartSequence()`` — which caps
     the slow lanes' momentum oscillation (worst lane 4.3k -> 1.9k
-    iterations, 350 -> 520 p/s fenced / 578 streamed on the flagship
-    lam-path; committed rows ``x64_restart_*`` in
-    ``results_x64_batched.jsonl``).  At tol 1e-6 plain warm is faster
-    (1,697 vs 1,188 committed): the restart signal is a per-step (B,)
-    reduction that roughly doubles the generic driver's per-iteration
-    cost, and too few polish iterations remain to amortize it.
+    iterations on the flagship lam-path; ``x64_batched.py --restart``).
+    At tol 1e-6 plain warm can be faster: the restart signal is a
+    per-step (B,) reduction in the generic driver, and too few polish
+    iterations remain to amortize it.
     """
 
     def __init__(self, iteration_factory, *, maxit, tol, warm_tol=1.2e-5,
@@ -165,11 +156,9 @@ class WarmStartedAlgorithm:
         solver = WarmStartedAlgorithm(pa.ZeroFPR, maxit=5000, tol=1e-6)
         x, it = solver(x0=x0_f64, f=f, g=g, Lf=Lf)
 
-    Motivation (BASELINE.md round 4): on the reference's own lasso_medium
-    workload, single-problem f64-emulated solves run 0.3-1.1x a single
-    CPU core — the x64 software emulation pays 3-5x per iteration for
-    hundreds of f32-reachable iterations.  Warm-starting moves those
-    iterations to native f32 and leaves only the polish in f64.  The
+    Motivation: on the reference's own lasso_medium workload most of a
+    cold f64 solve's iterations are reachable in f32, where each costs
+    less.  Warm-starting moves those iterations to f32 and leaves only the polish in f64.  The
     returned iteration count is the two stages' total; the solution must
     be x0-shaped (true for every 2-term solver; primal-dual pairs need a
     custom ``solution``)."""

@@ -1,4 +1,4 @@
-"""Function-oracle protocol (the ProximalCore.jl equivalent, TPU-native).
+"""Function-oracle protocol (the ProximalCore.jl equivalent, in JAX).
 
 The whole solver suite is written against two oracles, mirroring the protocol
 the reference is built on (``/root/reference/src/ProximalAlgorithms.jl:5-6``,

@@ -4,12 +4,12 @@ This is the minimum function library the reference test/bench suite needs
 (``SURVEY.md`` §1 L0): NormL1, LeastSquares, SqrNormL2, ElasticNet, Translate,
 Linear, IndBox, IndNonnegative, IndPoint, IndAffine, SlicedSeparableSum
 (see ``/root/reference/test/problems/*.jl``, ``benchmark/benchmarks.jl:1``),
-plus smooth losses used by the TPU benchmark configs.
+plus smooth losses used by the benchmark configs.
 
 Everything is a frozen pytree dataclass (see :mod:`proxtpu.prox.base`): array
 parameters are traced leaves, so a *batch* of functions (e.g. 10k lasso
 instances) is just a stacked pytree under ``vmap``.  All proxes are written as
-shape-preserving elementwise/VPU ops or batched MXU matmuls — no Python
+shape-preserving elementwise ops or batched matmuls — no Python
 control flow on data.
 """
 
@@ -264,7 +264,7 @@ class IndAffine:
     """Indicator of {x : Ax = b}; prox is the affine projection.
 
     The Gram factor chol(A A^H) is precomputed at construction so each
-    projection is two triangular solves plus two matvecs (MXU-friendly).
+    projection is two triangular solves plus two matvecs (matmul-friendly).
     """
 
     A: object
@@ -344,7 +344,7 @@ def make_least_squares(A, b, lam=1.0):
     b = jnp.asarray(b)
     m, n = A.shape
     wide = m < n
-    # pdot even at construction: these run eagerly on the default (TPU) device
+    # pdot even at construction: these run eagerly on the default device
     # and the Gram eigendecomposition / Atb are baked into every prox call.
     gram = pdot(A, A.conj().T) if wide else pdot(A.conj().T, A)
     s, U = jnp.linalg.eigh(gram)
@@ -355,7 +355,7 @@ def make_least_squares(A, b, lam=1.0):
 class LeastSquaresLoss:
     """f(x) = lam/2 ||A x - b||^2 as a *smooth-only* oracle (no prox, no
     factorization at construction) — the cheap batched form for the
-    FB-family where only ``value_and_gradient`` is needed; two MXU matvecs
+    FB-family where only ``value_and_gradient`` is needed; two matvecs
     per call, vmaps to batched matmuls."""
 
     A: object
@@ -1728,7 +1728,7 @@ class IndPolyhedral:
     ``lo_i == hi_i``; one-sided rows use ``-inf``/``inf``.
 
     The reference delegates the projection to a host QP library; the
-    TPU-native prox solves the DUAL of the projection QP
+    batched prox solves the DUAL of the projection QP
 
         min_y  (1/2)||A^T y||^2 - <y, A x> + sigma_[lo,hi](y)
 
@@ -1851,7 +1851,7 @@ class TotalVariation1D:
     variation (``ProximalOperators.TotalVariation1D``).
 
     The reference computes the prox with Condat's direct taut-string scan —
-    inherently sequential, data-dependent pointer code.  The TPU-native
+    inherently sequential, data-dependent pointer code.  The batched
     prox instead solves the DUAL denoising problem (Beck-Teboulle FGP):
 
         min_{|u| <= gamma*lam}  (1/2)||D^T u - x||^2,    z = x - D^T u
@@ -1865,11 +1865,8 @@ class TotalVariation1D:
     ``restart=True`` (default) adds O'Donoghue-Candès gradient-scheme
     adaptive restart to the dual sequence — same fixed point, measured
     2.8x fewer dual iterations (mean 258 -> 91, max 482 -> 159 on the
-    4096x512 benchmark batch; ``tv1d_restart_*`` rows of
-    ``benchmarks/results_streaming.jsonl``, counted by the instrumented
-    loop in ``streaming_probe.py`` whose output is asserted identical to
-    this prox) at identical accuracy vs the f64 taut-string oracle
-    (BASELINE.md round-5 TV section).
+    4096x512 benchmark batch of ``benchmarks/tv1d_bench.py``) at identical
+    accuracy vs the f64 taut-string oracle.
     """
 
     lam: object = 1.0

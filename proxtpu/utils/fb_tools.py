@@ -95,7 +95,7 @@ def backtrack_stepsize(
     (``fb_tools.jl:24-63``), so ``T >= log2(gamma0/minimum_gamma)`` makes
     the two modes exactly equivalent.  The bounded form is what makes
     ``adaptive=True`` batchable: a nested data-dependent while-loop under
-    ``vmap`` compiles pathologically on TPU (~390 s at tiny shapes), while
+    ``vmap`` can compile pathologically slowly (minutes at tiny shapes), while
     the fixed-trip loop compiles like any other scan.
     """
     eps = eps_of(x)

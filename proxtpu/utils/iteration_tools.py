@@ -2,7 +2,7 @@
 
 The reference's ``IterationTools`` module (``src/utilities/iteration_tools.jl``:
 ``halt``, ``tee``, ``sample``, ``stopwatch``, ``loop``) powers its
-verbosity/termination mechanics.  The TPU build's hot path is the jitted
+verbosity/termination mechanics.  The batched build's hot path is the jitted
 ``lax.while_loop`` driver, which never materializes intermediate states; these
 combinators serve the *power-user* path instead — the eager generator of
 states from :func:`proxtpu.algorithms.core.states` — for debugging,

@@ -1,8 +1,8 @@
 """Loop lowerings for data-dependent-but-bounded searches.
 
-A ``lax.while_loop`` nested inside a vmapped solver step compiles
-pathologically on TPU (minutes-to-hours even at tiny shapes — measured for
-both the gamma-backtracking and the tau-linesearch loops).  Every such
+A ``lax.while_loop`` nested inside a vmapped solver step can compile
+pathologically slowly (minutes-to-hours even at tiny shapes — seen for both
+the gamma-backtracking and the tau-linesearch loops).  Every such
 search in this library is *bounded* (``max_backtracks`` for the
 tau-searches, the ``minimum_gamma`` floor for gamma), so it can be lowered
 as a fixed-trip ``fori_loop`` whose body is masked by the original

@@ -1,15 +1,15 @@
 """Matmul precision policy for convergence-critical matvecs.
 
-On TPU the MXU's default matmul precision is bfloat16, whose ~3 decimal
-digits stall fixed-point iterations around 1e-3 — solvers then never reach
-tolerances like 1e-6 (observed: batched FISTA at tol 1e-5 converges in ~500
-iterations at float32 precision and *never* at default precision).  Every
-dense matvec in the library therefore routes through :func:`pdot`, which
-pins ``Precision.HIGHEST`` (6-pass bf16 ≈ true f32) by default.
+A float32 matrix product may run at reduced precision by default (TF32 on
+a GPU's tensor cores, about three decimal digits), which stalls fixed-point
+iterations around 1e-3 — solvers then never reach tolerances like 1e-6.
+Every dense matvec in the library therefore routes through :func:`pdot`,
+which pins ``Precision.HIGHEST`` by default: full float32 on the GPU, with
+no TF32.
 
-Lower it globally with :func:`set_matmul_precision` ("default" recovers raw
-bf16 MXU speed for applications that only need coarse solutions; "high" is
-the 3-pass middle ground).
+Lower it globally with :func:`set_matmul_precision` ("default" lets the
+backend pick its fastest float32 product for applications that only need
+coarse solutions; "high" is the middle ground).
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference's cost accounting is oracle-call counts
 (:class:`~proxtpu.utils.iteration_tools.Counting`) and the ``stopwatch``
-combinator; the TPU-native additions here are XLA-level:
+combinator; the additions here are XLA-level:
 
 * :func:`trace` — context manager around a solve writing a
   ``jax.profiler`` trace (open with TensorBoard / Perfetto) so the fused

@@ -7,11 +7,9 @@ carries a leading batch axis, and each lane's matvec lowers to one slice of
 a batched GEMV.  But the most common batched workloads share their largest
 operand across lanes: a regularization-path sweep shares (A, b) and varies
 ``lam``; a multi-right-hand-side solve shares A and varies b.  Stacking B
-identical copies of A wastes HBM *and* the MXU — XLA sees a batched
-dot_general and streams the operand B times, where a lane-invariant A makes
-the very same step a single ``(B, n) @ (n, m)`` systolic-array matmul (the
-measured difference on the distinct-A vs shared-A lasso kernels is ~1.4-2x,
-BASELINE.md).
+identical copies of A wastes device memory *and* bandwidth — XLA sees a
+batched dot_general and streams the operand B times, where a lane-invariant
+A makes the very same step a single ``(B, n) @ (n, m)`` matmul.
 
 ``Shared(obj)`` marks a problem object (a function, a linear operator, or
 any pytree) as identical across lanes.  It is:
@@ -24,14 +22,14 @@ any pytree) as identical across lanes.  It is:
 * an axis marker — :func:`batch_axes` builds the ``jax.vmap`` ``in_axes``
   pytree that maps ordinary leaves over axis 0 and leaves Shared subtrees
   unmapped (``None``), which is what turns the per-lane matvec into one
-  MXU matmul.
+  matmul.
 
 Mixed sharing (e.g. shared design matrix, per-lane right-hand side) is
 expressed through the explicit-composition API the algorithms already have:
 ``PANOC`` solves ``f(A x) + g(x)``, so pass ``A=Shared(op)`` with a batched
 ``f`` — no per-leaf marking needed.
 
-The reference has no batching at all (SURVEY.md §2.6); this is a TPU-build
+The reference has no batching at all (SURVEY.md §2.6); this is a batched-build
 capability.  The closest reference analogue is its genericity over implicit
 operators (``fb_tools.jl:21-22``), which Shared preserves: anything with
 ``matvec``/``rmatvec`` can be shared.

@@ -3,7 +3,7 @@
 Run by ``tests/test_multiprocess.py`` as 2 OS processes, each owning 4
 virtual CPU devices.  ``proxtpu.parallel.initialize_distributed`` brings up
 the JAX distributed runtime (Gloo collectives between processes — the same
-code path a multi-host TPU slice takes over DCN), ``global_mesh`` builds an
+code path a multi-host cluster takes over the network), ``global_mesh`` builds an
 8-device mesh spanning both processes, and the UNMODIFIED jitted batched
 solver runs SPMD over it: the ``jnp.all(done)`` stopping reduction becomes
 a real cross-process collective every convergence check.

@@ -220,7 +220,7 @@ def test_adaptive_matches_fixed():
 
 
 # ---------------------------------------------------------------------------
-# AdaptiveRestartSequence (O'Donoghue & Candes; TPU-extra, no reference
+# AdaptiveRestartSequence (O'Donoghue & Candes; extension, no reference
 # counterpart — the reference pins textbook sequences)
 # ---------------------------------------------------------------------------
 

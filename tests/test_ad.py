@@ -82,7 +82,7 @@ def test_hand_oracle_preferred_over_ad():
 
 
 def test_quadratic_matrix_iterate():
-    """ADVICE r4: Quadratic must keep supporting matrix-valued operands —
+    """Quadratic must keep supporting matrix-valued operands —
     pmatvec((n,n), (n,k)) is a matmul, not a mis-broadcast einsum — while
     preserving the batched-(B,n,n)/(B,n) per-lane matvec it was added for."""
     from proxtpu.utils.precision import pmatvec

@@ -1,6 +1,6 @@
 """Scenario batching: batched solve must equal a loop of single solves.
 
-The consistency oracle SURVEY.md §4 prescribes for the TPU build: per-lane
+The consistency oracle SURVEY.md §4 prescribes for the batched build: per-lane
 solutions and iteration counts from ``batched_run_loop`` match the
 single-problem driver exactly (converged lanes freeze).
 """
@@ -297,7 +297,7 @@ def test_halt_nonfinite_dead_lane():
 
 
 def test_lane_finite_no_inexact_leaves():
-    """ADVICE r4: a state pytree with no floating/complex leaves is
+    """A state pytree with no floating/complex leaves is
     vacuously finite — _lane_finite must return a broadcastable True, not
     None (which made ``~_lane_finite(s)`` a trace-time TypeError under
     halt_nonfinite=True)."""

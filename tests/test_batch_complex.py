@@ -3,7 +3,7 @@
 The reference treats complex problems as first-class (``RealOrComplex``,
 ``real(dot(...))`` inner products, 4-dtype sweeps in
 ``test/problems/test_lasso_small.jl:16``); the single-problem drivers here
-match that.  These tests extend the sweep to the TPU-build's batched paths:
+match that.  These tests extend the sweep to the batched paths:
 the generic vmapped driver and the flat line-search machines must preserve
 complex dtypes and reproduce the single driver's per-lane solutions, with
 and without a Shared (lane-invariant) operand.

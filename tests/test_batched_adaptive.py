@@ -3,8 +3,8 @@ data-dependent while_loop, single and batched.
 
 The reference's ``backtrack_stepsize!`` is a data-dependent loop bounded by
 ``minimum_gamma`` (``/root/reference/src/utilities/fb_tools.jl:24-63``); the
-TPU build adds a fixed-trip masked formulation (``backtrack_limit=T``) because
-a nested while_loop under vmap compiles pathologically on TPU.  These tests
+batched build adds a fixed-trip masked formulation (``backtrack_limit=T``)
+because a nested while_loop under vmap can compile pathologically slowly.  These tests
 pin the two modes to identical results, and batched-adaptive solves to the
 single-problem driver per lane (SURVEY.md §4's batch-consistency oracle).
 """
@@ -93,7 +93,7 @@ def random_lasso(k, m=8, n=12, dtype=jnp.float64):
 )
 def test_batched_adaptive_matches_loop(factory, solver_name):
     """Adaptive (backtracking) solves batch: per-lane counts and solutions
-    match the single-problem driver — the VERDICT round-1 'Done' criterion."""
+    match the single-problem driver."""
     problems = [random_lasso(k) for k in range(5)]
     iteration = batch_problems(factory, problems)
     xs, iters, done = batched_run_loop(iteration, 3000, TOL)
@@ -173,7 +173,7 @@ def test_batched_linesearch_bounded(factory_name, solver_name):
 def test_resume_counter_spans_segments():
     """resume_iters continues the iteration budget across segments: a solve
     split at k=50 returns the same total count and solution as one run
-    (ADVICE r1: resumed runs must not get a fresh maxit budget)."""
+    (resumed runs must not get a fresh maxit budget)."""
     from proxtpu.algorithms.core import run_loop
 
     kw = lasso_problem(adaptive=False, Lf=float(np.linalg.norm(LASSO_A, 2) ** 2))

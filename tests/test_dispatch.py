@@ -69,14 +69,14 @@ def test_lasso_matches_and_agrees_with_generic(lasso):
     xs_s, it_s, d_s = batched_run_loop(iteration, 3000, TOL)
     assert bool(jnp.all(d_f)) and bool(jnp.all(d_s))
     np.testing.assert_allclose(np.asarray(xs_f), np.asarray(xs_s), atol=1e-4)
-    # kernel counts are an upper bound (±1 f32 boundary, +iter_block-1
-    # sampling slack when blocked); on CPU the dispatch runs the one-step
-    # einsum path, so only the ±1 boundary applies
+    # counts agree up to the ±1 f32 boundary (on CPU the dispatch runs
+    # the XLA step)
     assert int(np.max(np.abs(np.asarray(it_f) - np.asarray(it_s)))) <= 1
 
 
 def test_lasso_interpret_kernel_path(lasso):
-    """use_kernels='interpret' exercises the real Pallas kernel on CPU."""
+    """use_kernels='interpret' runs the fused lasso kernel in Pallas
+    interpret mode on CPU."""
     A, b, lam, Lf = lasso
     kw = lasso_kwargs(A, b, lam, Lf)
     fast = BatchedAlgorithm(
@@ -192,8 +192,8 @@ def test_custom_stop_falls_back(lasso):
 
 def test_batched_algorithm_injects_bounded_search(lasso):
     """BatchedAlgorithm defaults backtrack_limit for factories that accept
-    it (the batched context needs the bounded lowering on TPU); explicit
-    None wins."""
+    it (the batched context needs the bounded lowering to compile fast);
+    explicit None wins."""
     from proxtpu.algorithms.panoc import make_panoc_iteration
     from proxtpu.prox import SqrDistance
 
@@ -478,11 +478,9 @@ def test_array_mf_matcher_returns_none(lasso):
 
 
 def test_f64_problems_skip_real_kernels():
-    """r5 review: the Pallas kernels are f32-only on TPU — an f64
-    problem must route to the pure-XLA branch.  Checked structurally:
-    the matcher's returned runner must execute without touching a real
-    pallas_call even when the TPU branch is forced via interpret
-    semantics (on CPU the guard is exercised by dtype alone)."""
+    """The compiled kernel is float32-only — an f64 problem must route to
+    the pure-XLA step (on CPU the guard is exercised by dtype alone; the
+    route rule itself is pinned in tests/test_kernels.py)."""
     rng = np.random.default_rng(7)
     A = jnp.asarray(rng.standard_normal((B, M, N)) / np.sqrt(M),
                     jnp.float64)

@@ -1,8 +1,9 @@
-"""Pallas fused-kernel correctness (interpret mode on the CPU mesh).
+"""Batched lasso solvers and the fused FISTA step kernel.
 
-The fused batched lasso FB step must match the pure-XLA reference math
-elementwise, and the kernel-driven solver must reproduce the generic
-batched driver's per-lane iteration counts exactly.
+On the CPU the kernel runs in Pallas interpret mode: the fused step must
+match the pure-XLA reference math elementwise, and the kernel-driven solver
+must reproduce the XLA solver's and the generic batched driver's per-lane
+iteration counts (up to the f32 last-bit boundary).
 """
 
 import jax
@@ -12,8 +13,11 @@ import pytest
 
 from proxtpu.kernels.lasso import (
     fused_fb_prox_grad,
+    fused_fista_step,
+    lasso_step_route,
     reference_fb_prox_grad,
     solve_lasso_batch,
+    xla_fista_step,
 )
 
 B, M, N = 5, 16, 24
@@ -91,66 +95,8 @@ def test_kernel_solver_matches_generic_driver(data):
     assert int(np.max(np.abs(np.asarray(it) - np.asarray(iters)))) <= 1
 
 
-class TestBoxQPKernel:
-    """Fused projected-gradient box-QP kernel vs references."""
-
-    @pytest.fixture(scope="class")
-    def qp(self):
-        rng = np.random.default_rng(0)
-        Bq, n = 6, 16
-        Qs, qs, Lips = [], [], []
-        for _ in range(Bq):
-            U, _ = np.linalg.qr(rng.standard_normal((n, n)))
-            ev = 2 * rng.random(n) - 1
-            Q = (U @ np.diag(ev) @ U.T).astype(np.float32)
-            Qs.append(0.5 * (Q + Q.T))
-            qs.append(rng.standard_normal(n).astype(np.float32))
-            Lips.append(np.max(np.abs(ev)))
-        return (
-            jnp.asarray(np.stack(Qs)),
-            jnp.asarray(np.stack(qs)),
-            jnp.asarray(np.array(Lips, np.float32)),
-        )
-
-    def test_step_matches_reference(self, qp):
-        from proxtpu.kernels.box_qp import (
-            fused_pg_box_step,
-            reference_pg_box_step,
-        )
-
-        Q, q, Lip = qp
-        Bq, n = q.shape
-        rng = np.random.default_rng(1)
-        x = jnp.asarray(rng.standard_normal((Bq, n)).astype(np.float32))
-        gam = (0.95 / Lip).astype(jnp.float32)
-        lo = jnp.full((Bq,), -1.0, jnp.float32)
-        hi = jnp.full((Bq,), 1.0, jnp.float32)
-        zk, rk = fused_pg_box_step(Q, q, x, gam, lo, hi, interpret=True)
-        zr, rr = reference_pg_box_step(Q, q, x, gam, lo, hi)
-        np.testing.assert_allclose(np.asarray(zk), np.asarray(zr), atol=5e-6)
-        np.testing.assert_allclose(np.asarray(rk), np.asarray(rr), atol=5e-6)
-
-    def test_solver_fixed_point(self, qp):
-        from proxtpu.kernels.box_qp import solve_box_qp_batch
-
-        Q, q, Lip = qp
-        z, iters, done = solve_box_qp_batch(
-            Q, q, -1.0, 1.0, Lip, 1e-4, use_kernel=True, interpret=True
-        )
-        assert bool(jnp.all(done))
-        # verify the projected-gradient fixed-point residual directly
-        for i in range(q.shape[0]):
-            x = np.asarray(z[i], np.float64)
-            gamma = 0.95 / float(Lip[i])
-            step = np.clip(
-                x - gamma * (np.asarray(Q[i], np.float64) @ x + np.asarray(q[i])),
-                -1.0, 1.0,
-            )
-            assert np.max(np.abs(x - step)) / gamma <= 2e-4
-
-
 def test_multirhs_matches_per_lane_batch(data):
-    """The shared-A MXU formulation must reproduce the distinct-A batch
+    """The shared-A matmul formulation must reproduce the distinct-A batch
     solver exactly when every lane carries the same A: same counts (+-1
     f32 boundary), same fixed points."""
     from proxtpu.kernels.lasso import solve_lasso_batch, solve_lasso_multirhs
@@ -213,57 +159,6 @@ def test_multirhs_dispatch():
     y = x - g0 * (An.T @ (An @ x - np.asarray(bb[0], np.float64)))
     zz = np.sign(y) * np.maximum(np.abs(y) - g0 * 0.1, 0)
     assert np.max(np.abs(x - zz)) / g0 <= 2e-5
-
-
-def test_blocked_solver_matches_fixed_point(data):
-    """Iteration-blocked FISTA reaches the same fixed point; its sampled
-    stopping makes per-lane counts an upper bound (never earlier than the
-    one-step solver)."""
-    from proxtpu.kernels.lasso import (
-        solve_lasso_batch,
-        solve_lasso_batch_blocked,
-    )
-
-    A, b, lam, Lf = data
-    z1, i1, d1 = solve_lasso_batch(
-        A, b, lam, Lf, 1e-5, maxit=3000, use_kernel=True, interpret=True
-    )
-    z2, i2, d2 = solve_lasso_batch_blocked(
-        A, b, lam, Lf, 1e-5, maxit=3000, iter_block=8, interpret=True
-    )
-    assert bool(jnp.all(d1)) and bool(jnp.all(d2))
-    np.testing.assert_allclose(np.asarray(z1), np.asarray(z2), atol=5e-4)
-    assert np.all(np.asarray(i2) >= np.asarray(i1) - 1)
-
-
-def test_blocked_box_qp_matches(qp=None):
-    """Blocked box-QP PG reaches the same fixed point with upper-bound
-    iteration counts."""
-    from proxtpu.kernels import solve_box_qp_batch, solve_box_qp_batch_blocked
-
-    rng = np.random.default_rng(3)
-    n, Bq = 16, 8
-    Qs, qs, Lips = [], [], []
-    for _ in range(Bq):
-        U, _ = np.linalg.qr(rng.standard_normal((n, n)))
-        ev = 2 * rng.random(n) - 1
-        Q0 = (U @ np.diag(ev) @ U.T).astype(np.float32)
-        Qs.append(0.5 * (Q0 + Q0.T))
-        qs.append(rng.standard_normal(n).astype(np.float32))
-        Lips.append(np.max(np.abs(ev)))
-    Q = jnp.asarray(np.stack(Qs))
-    q = jnp.asarray(np.stack(qs))
-    Lip = jnp.asarray(np.array(Lips, np.float32))
-
-    z1, i1, d1 = solve_box_qp_batch(
-        Q, q, -1.0, 1.0, Lip, 1e-4, use_kernel=True, interpret=True
-    )
-    z2, i2, d2 = solve_box_qp_batch_blocked(
-        Q, q, -1.0, 1.0, Lip, 1e-4, iter_block=8, interpret=True
-    )
-    assert bool(jnp.all(d1)) and bool(jnp.all(d2))
-    np.testing.assert_allclose(np.asarray(z1), np.asarray(z2), atol=2e-3)
-    assert np.all(np.asarray(i2) >= np.asarray(i1) - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -347,7 +242,7 @@ def test_restart_converges_faster_same_quality(data):
 
 
 def test_restart_kernel_matches_xla_counts(data):
-    """The in-kernel restart signal (a VMEM (1,N) reduction) reproduces
+    """The in-kernel restart signal (a per-lane register reduction) reproduces
     the XLA path's decisions; knife-edge trials (rs summed in a different
     f32 order) may flip single iterations."""
     A, b, lam, Lf = data
@@ -363,35 +258,34 @@ def test_restart_kernel_matches_xla_counts(data):
 
 
 def test_restart_blocked_and_multirhs(data):
-    """The blocked kernel restarts inside its inner loop; the shared-A
-    MXU solver restarts per lane — both satisfy the residual criterion."""
-    from proxtpu.kernels.lasso import (
-        solve_lasso_batch_blocked, solve_lasso_multirhs,
-    )
+    """The shared-A solver restarts per lane, with every step checked
+    (iter_block=1) and with the check once per block (iter_block=4):
+    both satisfy the residual criterion and restart cuts iterations."""
+    from proxtpu.kernels.lasso import solve_lasso_multirhs
 
     A, b, lam, Lf = data
     tol = 1e-5
-    z_b, it_b, d_b = solve_lasso_batch_blocked(
-        A, b, lam, Lf, tol, maxit=3000, iter_block=4, interpret=True,
-        restart=True,
-    )
-    assert bool(jnp.all(d_b))
-    assert float(jnp.max(_fb_residual(A, b, lam, Lf, z_b))) <= 1.1 * tol
-
     A1 = A[0]
     Lf1 = float(np.linalg.norm(np.asarray(A1), 2) ** 2)
-    z_m, it_m, d_m = solve_lasso_multirhs(A1, b, lam, Lf1, tol, maxit=3000,
-                                          restart=True)
-    _, it_p, d_p = solve_lasso_multirhs(A1, b, lam, Lf1, tol, maxit=3000)
-    assert bool(jnp.all(d_m)) and bool(jnp.all(d_p))
-    assert float(jnp.mean(np.asarray(it_m))) < float(
-        jnp.mean(np.asarray(it_p))
-    )
+    A_rep = jnp.broadcast_to(A1, A.shape)
+    Lf_rep = jnp.full(Lf.shape, Lf1, jnp.float32)
+    for K in (1, 4):
+        z_m, it_m, d_m = solve_lasso_multirhs(A1, b, lam, Lf1, tol,
+                                              maxit=3000, iter_block=K,
+                                              restart=True)
+        _, it_p, d_p = solve_lasso_multirhs(A1, b, lam, Lf1, tol,
+                                            maxit=3000, iter_block=K)
+        assert bool(jnp.all(d_m)) and bool(jnp.all(d_p))
+        assert float(jnp.max(_fb_residual(A_rep, b, lam, Lf_rep, z_m))) \
+            <= 1.1 * tol
+        assert float(jnp.mean(np.asarray(it_m))) < float(
+            jnp.mean(np.asarray(it_p))
+        )
 
 
 def test_restart_multirhs_block_boundary(data):
     """With iter_block>1 the restart signal is checked once per block (the
-    per-step reduction would break the MXU epilogue fusion); the delayed
+    per-step reduction would break the matmul epilogue fusion); the delayed
     check must still cut iterations vs plain K-blocked and satisfy the
     same residual criterion."""
     from proxtpu.kernels.lasso import solve_lasso_multirhs
@@ -440,7 +334,8 @@ def test_compacting_exact_parity(data):
             assert (np.asarray(i1) == np.asarray(i2)).all()
             assert (np.asarray(d1) == np.asarray(d2)).all()
             if use_kernel:
-                # per-lane VMEM reductions are batch-size invariant
+                # each lane's reductions run in its own program, so
+                # they do not depend on the batch size
                 np.testing.assert_array_equal(np.asarray(z1), np.asarray(z2))
             else:
                 # XLA's batched-einsum reduction tiling depends on the
@@ -475,96 +370,6 @@ def test_mixed_solver_restart_kernel_matches_xla(data):
     assert bool(jnp.all(d_x)) and bool(jnp.all(d_k))
     assert int(np.max(np.abs(np.asarray(it_x) - np.asarray(it_k)))) <= 1
     assert float(jnp.max(_fb_residual(A, b, lam, Lf, z_k))) <= 1.1 * tol
-
-
-def test_packed_solver_matches_onestep():
-    """Zero-lane-padding packed kernel (round 4): same stopping rule and
-    freezing as solve_lasso_batch; solutions in the same tol-ball,
-    iteration counts equal up to reduction-order knife edges (the
-    segmented contractions accumulate on the MXU instead of a lane tree)."""
-    from proxtpu.kernels.lasso import (
-        _pack_count,
-        solve_lasso_batch_packed,
-    )
-
-    assert _pack_count(400, 256) == 8
-    assert _pack_count(384, 256) == 1   # already lane-aligned
-    assert _pack_count(400, 100) == 1   # pack does not divide B
-    assert _pack_count(48, 8) == 1      # no aligned main region (N < 128)
-
-    rng = np.random.default_rng(3)
-    Bq, Mq, Nq = 8, 16, 160             # pack = 128/gcd(160,128) = 4
-    A = jnp.asarray((rng.standard_normal((Bq, Mq, Nq)) / np.sqrt(Mq))
-                    .astype(np.float32))
-    b = jnp.asarray(rng.standard_normal((Bq, Mq)).astype(np.float32))
-    lam = jnp.asarray(0.1 * np.max(np.abs(np.einsum(
-        "bmn,bm->bn", np.asarray(A), np.asarray(b))), axis=1), jnp.float32)
-    Lf = jnp.asarray([np.linalg.norm(np.asarray(A[i]), 2) ** 2
-                      for i in range(Bq)], jnp.float32)
-    tol = 1e-5
-    for restart in (False, True):
-        z1, i1, d1 = solve_lasso_batch(
-            A, b, lam, Lf, tol, maxit=3000, use_kernel=True,
-            interpret=True, restart=restart)
-        z2, i2, d2 = solve_lasso_batch_packed(
-            A, b, lam, Lf, tol, maxit=3000, interpret=True,
-            restart=restart)
-        assert bool(jnp.all(d1)) and bool(jnp.all(d2))
-        # counts: equal except possibly knife-edge flips on a minority
-        same = np.asarray(i1) == np.asarray(i2)
-        assert same.mean() >= 0.75, (np.asarray(i1), np.asarray(i2))
-        # every packed lane satisfies the criterion at the f32 operator
-        assert float(jnp.max(_fb_residual(A, b, lam, Lf, z2))) <= 1.1 * tol
-        np.testing.assert_allclose(np.asarray(z2), np.asarray(z1),
-                                   atol=1e-3)
-
-    # maxit cap + unconverged reporting parity
-    z1, i1, d1 = solve_lasso_batch(A, b, lam, Lf, 1e-12, maxit=40,
-                                   use_kernel=True, interpret=True)
-    z2, i2, d2 = solve_lasso_batch_packed(A, b, lam, Lf, 1e-12, maxit=40,
-                                          interpret=True)
-    assert not bool(jnp.any(d2))
-    assert (np.asarray(i2) == np.asarray(i1)).all()
-
-    # pack=1 falls back to the natural-layout solver exactly
-    z3, i3, d3 = solve_lasso_batch_packed(A, b, lam, Lf, tol, maxit=3000,
-                                          interpret=True, pack=1)
-    z4, i4, d4 = solve_lasso_batch(A, b, lam, Lf, tol, maxit=3000,
-                                   use_kernel=True, interpret=True)
-    np.testing.assert_array_equal(np.asarray(z3), np.asarray(z4))
-
-
-def test_packed_solver_mf_route():
-    """Strongly-convex (mf>0) coefficients ride the packed kernel too:
-    per-lane counts match the natural-layout mf solver and mf genuinely
-    cuts iterations vs the plain t-recursion."""
-    from proxtpu.kernels.lasso import solve_lasso_batch_packed
-
-    rng = np.random.default_rng(13)
-    Bq, Mq, Nq = 4, 320, 160            # tall A -> strongly convex; pack=4
-    A = jnp.asarray((rng.standard_normal((Bq, Mq, Nq)) / np.sqrt(Mq))
-                    .astype(np.float32))
-    b = jnp.asarray(rng.standard_normal((Bq, Mq)).astype(np.float32))
-    lam = jnp.asarray(0.1 * np.max(np.abs(np.einsum(
-        "bmn,bm->bn", np.asarray(A), np.asarray(b))), axis=1), jnp.float32)
-    sv = [np.linalg.svd(np.asarray(A[i]), compute_uv=False)
-          for i in range(Bq)]
-    Lf = jnp.asarray([s[0] ** 2 for s in sv], jnp.float32)
-    mf = min(float(s[-1] ** 2) for s in sv)
-    z1, i1, d1 = solve_lasso_batch(A, b, lam, Lf, 1e-5, maxit=4000,
-                                   use_kernel=True, interpret=True, mf=mf)
-    z2, i2, d2 = solve_lasso_batch_packed(A, b, lam, Lf, 1e-5, maxit=4000,
-                                          interpret=True, mf=mf)
-    _, i3, d3 = solve_lasso_batch_packed(A, b, lam, Lf, 1e-5, maxit=4000,
-                                         interpret=True)
-    assert bool(jnp.all(d1)) and bool(jnp.all(d2)) and bool(jnp.all(d3))
-    assert int(np.max(np.abs(np.asarray(i1) - np.asarray(i2)))) <= 1
-    np.testing.assert_allclose(np.asarray(z2), np.asarray(z1), atol=1e-4)
-    assert float(np.mean(np.asarray(i2))) < float(np.mean(np.asarray(i3)))
-    import pytest
-    with pytest.raises(ValueError):
-        solve_lasso_batch_packed(A, b, lam, Lf, 1e-5, maxit=10,
-                                 interpret=True, mf=mf, restart=True)
 
 
 def _lasso_problems(B_, M_, N_, seed=0, lam_frac=0.1):
@@ -616,26 +421,6 @@ def test_step_mult_faster_same_certificate():
                                    atol=5e-3)
         # mean count strictly improves on this workload (measured ~20%)
         assert float(jnp.mean(it_s)) < float(jnp.mean(it_r))
-
-
-def test_step_mult_packed_matches_onestep():
-    """The packed over-relaxed variant reproduces the natural-layout
-    counts up to reduction-order knife edges and the same certificate."""
-    from proxtpu.kernels.lasso import solve_lasso_batch_packed
-
-    A, b, lam, Lf = _lasso_problems(8, 40, 160, seed=1)
-    tol = 1e-5
-    z1, it1, d1 = solve_lasso_batch(
-        A, b, lam, Lf, tol, maxit=3000, restart=True, step_mult=1.5,
-        use_kernel=True, interpret=True)
-    z2, it2, d2 = solve_lasso_batch_packed(
-        A, b, lam, Lf, tol, maxit=3000, restart=True, step_mult=1.5,
-        interpret=True)
-    assert bool(jnp.all(d1)) and bool(jnp.all(d2))
-    assert _canonical_recheck(A, b, lam, Lf, z2) <= tol * 1.1
-    same = np.asarray(it1) == np.asarray(it2)
-    assert same.mean() >= 0.75, (np.asarray(it1), np.asarray(it2))
-    np.testing.assert_allclose(np.asarray(z2), np.asarray(z1), atol=5e-3)
 
 
 def test_step_mult_safeguard_rescues_divergence():
@@ -720,7 +505,7 @@ def test_elastic_net_kernel_matches_generic_driver():
 
 
 def test_elastic_net_multirhs_and_restart():
-    """Shared-A elastic net rides the MXU multirhs formulation; restart
+    """Shared-A elastic net rides the multirhs matmul formulation; restart
     composes with lam2 (measured ~3x count cut on this set)."""
     from proxtpu.algorithms import make_fast_forward_backward_iteration
     from proxtpu.kernels.lasso import solve_lasso_multirhs
@@ -763,13 +548,10 @@ def test_elastic_net_lam2_validation():
 
 
 def test_packed_tail_solver():
-    """Two-phase tail solver (round 5): both cond branches converge every
-    lane to the shared criterion; solutions sit in the same tol-ball as
-    the single-phase solve; phase-boundary restart may change counts."""
-    from proxtpu.kernels.lasso import (
-        solve_lasso_batch_packed,
-        solve_lasso_batch_packed_tail,
-    )
+    """Two-phase tail solver: both cond branches converge every lane to
+    the shared criterion; solutions sit in the same tol-ball as the
+    single-phase solve; phase-boundary restart may change counts."""
+    from proxtpu.kernels.lasso import solve_lasso_batch_tail
 
     rng = np.random.default_rng(5)
     Bq, Mq, Nq = 8, 16, 160
@@ -781,39 +563,323 @@ def test_packed_tail_solver():
     Lf = jnp.asarray([np.linalg.norm(np.asarray(A[i]), 2) ** 2
                       for i in range(Bq)], jnp.float32)
     tol = 1e-5
-    z0, i0, d0 = solve_lasso_batch_packed(
-        A, b, lam, Lf, tol, maxit=3000, interpret=True, restart=True)
+    kw = dict(use_kernel=True, interpret=True)
+    z0, i0, d0 = solve_lasso_batch(
+        A, b, lam, Lf, tol, maxit=3000, restart=True, **kw)
     # narrow branch: k1 past the median, tail wide enough
-    z1, i1, d1 = solve_lasso_batch_packed_tail(
+    z1, i1, d1 = solve_lasso_batch_tail(
         A, b, lam, Lf, tol, maxit=3000, k1=int(np.median(np.asarray(i0))),
-        tail=Bq // 2, restart=True, interpret=True)
+        tail=Bq // 2, restart=True, **kw)
     assert bool(jnp.all(d1))
     assert float(jnp.max(_fb_residual(A, b, lam, Lf, z1))) <= 1.1 * tol
     np.testing.assert_allclose(np.asarray(z1), np.asarray(z0), atol=1e-3)
     # wide fallback branch: k1 tiny so the tail cannot fit
-    z2, i2, d2 = solve_lasso_batch_packed_tail(
-        A, b, lam, Lf, tol, maxit=3000, k1=5, tail=1, restart=True,
-        interpret=True)
+    z2, i2, d2 = solve_lasso_batch_tail(
+        A, b, lam, Lf, tol, maxit=3000, k1=5, tail=1, restart=True, **kw)
     assert bool(jnp.all(d2))
     assert float(jnp.max(_fb_residual(A, b, lam, Lf, z2))) <= 1.1 * tol
     # k1 >= maxit degrades to the single-phase solve
-    z3, i3, d3 = solve_lasso_batch_packed_tail(
-        A, b, lam, Lf, tol, maxit=100, k1=100, tail=4, restart=True,
-        interpret=True)
+    z3, i3, d3 = solve_lasso_batch_tail(
+        A, b, lam, Lf, tol, maxit=100, k1=100, tail=4, restart=True, **kw)
     assert (np.asarray(i3) <= 100).all()
-    # maxit < k1: phase 1 is capped at maxit (regression: it used to run
-    # the full k1 iterations)
-    z4, i4, d4 = solve_lasso_batch_packed_tail(
-        A, b, lam, Lf, 1e-12, maxit=7, k1=100, tail=4, restart=True,
-        interpret=True)
+    # maxit < k1: phase 1 is capped at maxit
+    z4, i4, d4 = solve_lasso_batch_tail(
+        A, b, lam, Lf, 1e-12, maxit=7, k1=100, tail=4, restart=True, **kw)
     assert (np.asarray(i4) <= 7).all()
     with np.testing.assert_raises(ValueError):
-        solve_lasso_batch_packed_tail(
-            A, b, lam, Lf, tol, tail=0, interpret=True)
-    # scalar lam/Lf accepted like the packed solver (regression: the
-    # narrow-branch gather used to crash on non-array parameters)
-    z5, i5, d5 = solve_lasso_batch_packed_tail(
+        solve_lasso_batch_tail(A, b, lam, Lf, tol, tail=0, **kw)
+    # scalar lam/Lf accepted (the narrow-branch gather broadcasts them)
+    z5, i5, d5 = solve_lasso_batch_tail(
         A, b, 0.05, float(jnp.max(Lf)), tol, maxit=3000,
-        k1=int(np.median(np.asarray(i0))), tail=4, restart=True,
-        interpret=True)
+        k1=int(np.median(np.asarray(i0))), tail=4, restart=True, **kw)
     assert bool(jnp.all(d5))
+    # the XLA step runs the same two phases to the same criterion
+    z6, i6, d6 = solve_lasso_batch_tail(
+        A, b, lam, Lf, tol, maxit=3000, k1=int(np.median(np.asarray(i0))),
+        tail=Bq // 2, restart=True)
+    assert bool(jnp.all(d6))
+    assert float(jnp.max(_fb_residual(A, b, lam, Lf, z6))) <= 1.1 * tol
+    np.testing.assert_allclose(np.asarray(z6), np.asarray(z1), atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The fused FISTA step kernel (interpret mode) against the XLA step
+# ---------------------------------------------------------------------------
+
+_SHAPES = {
+    "N-not-pow2": (5, 16, 24),
+    "N-pow2": (4, 16, 32),
+    "M-not-multiple-of-rows": (3, 37, 50),
+    "B1": (1, 20, 64),
+}
+_VARIANTS = {
+    "plain": {},
+    "restart": dict(restart=True),
+    "shrink": dict(shrink=True),
+    "frozen": dict(frozen=True),
+    "restart-shrink-frozen": dict(restart=True, shrink=True, frozen=True),
+}
+
+
+def _step_operands(B_, M_, N_, seed=0, frozen=False, shrink=False):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: jnp.asarray(np.asarray(a, np.float32))
+    A = f32(rng.standard_normal((B_, M_, N_)) / np.sqrt(M_))
+    b = f32(rng.standard_normal((B_, M_)))
+    x = f32(rng.standard_normal((B_, N_)))
+    zp = f32(x + 0.1 * rng.standard_normal((B_, N_)))
+    Lf = np.array([np.linalg.norm(np.asarray(A[i]), 2) ** 2
+                   for i in range(B_)])
+    gamma = f32(1.0 / Lf)
+    thr = f32(np.asarray(gamma) * 0.05)
+    beta = f32(rng.random(B_))
+    done = f32((np.arange(B_) % 2 == 1) if frozen else np.zeros(B_))
+    shr = f32(1.0 + rng.random(B_)) if shrink else None
+    return A, b, x, zp, beta, gamma, thr, done, shr
+
+
+@pytest.mark.parametrize("variant", list(_VARIANTS))
+@pytest.mark.parametrize("shape", list(_SHAPES))
+def test_fused_fista_step_matches_xla_step(shape, variant):
+    """One full iteration (FB step, prox, optional elastic-net divide,
+    restart signal and its immediate use, extrapolation, frozen-lane
+    pass-through) agrees with the XLA step to f32 summation-order noise,
+    for N a power of two or not, M not a multiple of the row tile, B=1."""
+    opts = _VARIANTS[variant]
+    restart = opts.get("restart", False)
+    A, b, x, zp, beta, gamma, thr, done, shr = _step_operands(
+        *_SHAPES[shape], frozen=opts.get("frozen", False),
+        shrink=opts.get("shrink", False))
+    got = fused_fista_step(A, b, x, zp, beta, gamma, thr, done, shr,
+                           restart=restart, interpret=True, block_rows=8)
+    want = xla_fista_step(A, b, x, zp, beta, gamma, thr, done, shr,
+                          restart=restart)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=2e-6)
+    if opts.get("frozen"):
+        frozen = np.asarray(done) > 0
+        np.testing.assert_array_equal(np.asarray(got[0])[frozen],
+                                      np.asarray(x)[frozen])
+        np.testing.assert_array_equal(np.asarray(got[1])[frozen],
+                                      np.asarray(zp)[frozen])
+        assert not np.asarray(got[2])[frozen].any()
+
+
+@pytest.mark.parametrize("splits", [2, 3])
+@pytest.mark.parametrize("shape", ["N-not-pow2", "M-not-multiple-of-rows"])
+def test_fused_fista_step_row_splits(shape, splits):
+    """Rows split across programs (partial gradients reduced in a second
+    pass) give the same iteration as one program per lane."""
+    A, b, x, zp, beta, gamma, thr, done, shr = _step_operands(
+        *_SHAPES[shape], frozen=True, shrink=True)
+    one = fused_fista_step(A, b, x, zp, beta, gamma, thr, done, shr,
+                           restart=True, interpret=True, block_rows=4)
+    split = fused_fista_step(A, b, x, zp, beta, gamma, thr, done, shr,
+                             restart=True, interpret=True, block_rows=4,
+                             splits=splits)
+    for g, w in zip(split, one):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(w), atol=2e-6)
+
+
+@pytest.mark.parametrize("shape", [(256, 200, 400), (64, 200, 400),
+                                   (1, 20, 64), (5, 37, 50),
+                                   (1024, 200, 400), (8, 3000, 4000)])
+def test_kernel_config_fits_tiles_and_splits_narrow_batches(shape):
+    """Row tiles hold at most 16K elements of the power-of-two padded row,
+    and rows are split across programs only while the grid is narrower
+    than 256 programs, never into more splits than there are tiles."""
+    from proxtpu.kernels.lasso import _kernel_config
+
+    B_, M_, N_ = shape
+    rows, warps, stages, splits = _kernel_config(B_, M_, N_)
+    n_pad = 1 << (N_ - 1).bit_length()
+    tiles = -(-M_ // rows)
+    assert rows >= 1 and rows & (rows - 1) == 0
+    assert rows * n_pad <= 16384 or rows == 1
+    assert (warps, stages) == (4, 2)
+    assert 1 <= splits <= tiles
+    if B_ >= 256:
+        assert splits == 1
+    else:
+        assert splits == tiles or B_ * splits > 128
+        assert splits == 1 or B_ * splits <= 256
+
+
+def test_fused_step_reads_narrow_storage(data):
+    """A stored in bfloat16 is widened tile by tile inside the kernel: the
+    step equals the XLA step on the widened operator."""
+    A, b, lam, Lf = data
+    A16 = A.astype(jnp.bfloat16)
+    x = jnp.asarray(np.random.default_rng(2).standard_normal((B, N)),
+                    jnp.float32)
+    gamma = (1.0 / Lf).astype(jnp.float32)
+    z_k, r_k = fused_fb_prox_grad(A16, b, x, gamma, gamma * lam,
+                                  interpret=True)
+    z_r, r_r = reference_fb_prox_grad(A16.astype(jnp.float32), b, x, gamma,
+                                      gamma * lam)
+    np.testing.assert_allclose(np.asarray(z_k), np.asarray(z_r), atol=5e-6)
+    np.testing.assert_allclose(np.asarray(r_k), np.asarray(r_r), atol=5e-6)
+
+
+@pytest.mark.parametrize("restart", [False, True])
+def test_solver_kernel_parity_odd_shape(restart):
+    """Whole solves on the kernel and on the XLA step agree at a shape
+    with masked rows and columns: counts within 1, solutions 1e-4."""
+    A, b, lam, Lf = _lasso_problems(6, 37, 50, seed=0)
+    z_k, i_k, d_k = solve_lasso_batch(A, b, lam, Lf, 1e-5, maxit=3000,
+                                      use_kernel=True, interpret=True,
+                                      restart=restart)
+    z_x, i_x, d_x = solve_lasso_batch(A, b, lam, Lf, 1e-5, maxit=3000,
+                                      use_kernel=False, restart=restart)
+    assert bool(jnp.all(d_k)) and bool(jnp.all(d_x))
+    assert int(np.max(np.abs(np.asarray(i_k) - np.asarray(i_x)))) <= 1
+    np.testing.assert_allclose(np.asarray(z_k), np.asarray(z_x), atol=1e-4)
+
+
+def test_mf_kernel_route_matches_xla():
+    """Strongly-convex (mf>0) constant coefficients ride the kernel: counts
+    match the XLA step within 1 and mf cuts iterations vs the plain
+    t-recursion."""
+    rng = np.random.default_rng(13)
+    Bq, Mq, Nq = 4, 320, 160            # tall A -> strongly convex
+    A = jnp.asarray((rng.standard_normal((Bq, Mq, Nq)) / np.sqrt(Mq))
+                    .astype(np.float32))
+    b = jnp.asarray(rng.standard_normal((Bq, Mq)).astype(np.float32))
+    lam = jnp.asarray(0.1 * np.max(np.abs(np.einsum(
+        "bmn,bm->bn", np.asarray(A), np.asarray(b))), axis=1), jnp.float32)
+    sv = [np.linalg.svd(np.asarray(A[i]), compute_uv=False)
+          for i in range(Bq)]
+    Lf = jnp.asarray([s[0] ** 2 for s in sv], jnp.float32)
+    mf = min(float(s[-1] ** 2) for s in sv)
+    kw = dict(use_kernel=True, interpret=True)
+    z1, i1, d1 = solve_lasso_batch(A, b, lam, Lf, 1e-5, maxit=4000, mf=mf,
+                                   **kw)
+    z2, i2, d2 = solve_lasso_batch(A, b, lam, Lf, 1e-5, maxit=4000, mf=mf,
+                                   use_kernel=False)
+    _, i3, d3 = solve_lasso_batch(A, b, lam, Lf, 1e-5, maxit=4000, **kw)
+    assert bool(jnp.all(d1)) and bool(jnp.all(d2)) and bool(jnp.all(d3))
+    assert int(np.max(np.abs(np.asarray(i1) - np.asarray(i2)))) <= 1
+    np.testing.assert_allclose(np.asarray(z1), np.asarray(z2), atol=1e-4)
+    assert float(np.mean(np.asarray(i1))) < float(np.mean(np.asarray(i3)))
+
+
+# ---------------------------------------------------------------------------
+# Route resolution
+# ---------------------------------------------------------------------------
+
+
+def test_route_cpu_is_xla(data):
+    A = data[0]
+    assert jax.default_backend() == "cpu"
+    assert lasso_step_route(A) == "xla"
+    assert lasso_step_route(A, use_kernel=False) == "xla"
+
+
+def test_route_use_kernel_off_gpu_raises(data):
+    A, b, lam, Lf = data
+    with pytest.raises(ValueError, match="needs a GPU"):
+        lasso_step_route(A, use_kernel=True)
+    with pytest.raises(ValueError, match="needs a GPU"):
+        solve_lasso_batch(A, b, lam, Lf, 1e-5, maxit=10, use_kernel=True)
+
+
+def test_route_interpret_reaches_kernel(data):
+    A = data[0]
+    assert lasso_step_route(A, interpret=True) == "kernel"
+    assert lasso_step_route(A, use_kernel=True, interpret=True) == "kernel"
+    assert lasso_step_route(A, use_kernel=False, interpret=True) == "xla"
+
+
+@pytest.mark.parametrize("dtype,want", [(np.float32, "kernel"),
+                                        (np.float64, "xla")])
+def test_route_on_gpu_keys_on_dtype(monkeypatch, dtype, want):
+    """On a GPU the default picks the kernel for float32 only; f64 takes
+    the XLA step, and demanding the kernel for f64 raises."""
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    A = jnp.zeros((2, 3, 4), dtype)
+    assert lasso_step_route(A) == want
+    if want == "xla":
+        with pytest.raises(ValueError, match="float32"):
+            lasso_step_route(A, use_kernel=True)
+
+
+def test_batched_algorithm_interpret_runs_kernel(data):
+    """``use_kernels="interpret"`` routes the flagship shape through the
+    kernel (a pallas_call in the traced solve); the default on the CPU
+    takes the XLA step (no pallas_call)."""
+    from proxtpu.algorithms import make_fast_forward_backward_iteration
+    from proxtpu.kernels.dispatch import match_kernel_solver
+    from proxtpu.prox import LeastSquaresLoss, NormL1
+
+    A, b, lam, Lf = data
+    kw = dict(x0=jnp.zeros((B, N), jnp.float32), f=LeastSquaresLoss(A, b),
+              g=NormL1(lam), Lf=Lf)
+    def primitives(jaxpr):
+        for eqn in jaxpr.eqns:
+            yield eqn.primitive.name
+            for v in eqn.params.values():
+                for sub in v if isinstance(v, (list, tuple)) else [v]:
+                    sub = getattr(sub, "jaxpr", sub)
+                    if hasattr(sub, "eqns"):
+                        yield from primitives(sub)
+
+    for interpret, want in ((True, True), (None, False)):
+        run = match_kernel_solver(make_fast_forward_backward_iteration, kw,
+                                  tol=1e-5, maxit=50, interpret=interpret)
+        assert run is not None
+        names = set(primitives(jax.make_jaxpr(run)().jaxpr))
+        assert ("pallas_call" in names) == want
+
+
+# ---------------------------------------------------------------------------
+# Compile cache helper
+# ---------------------------------------------------------------------------
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    from proxtpu.utils.compile_cache import enable_compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_default_is_fixed_in_checkout(monkeypatch):
+    from pathlib import Path
+
+    from proxtpu.utils.compile_cache import enable_compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    root = Path(__file__).resolve().parents[1]
+    try:
+        first = enable_compile_cache()
+        assert first == enable_compile_cache() == str(root / ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == first
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+    ignored = (root / ".gitignore").read_text().split()
+    assert ".jax_cache/" in ignored
+
+
+# ---------------------------------------------------------------------------
+# On the card (skip elsewhere)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_reference_on_gpu(gpu):
+    """The compiled Triton kernel (no interpret mode) against the XLA step
+    at full float32 precision, on the card."""
+    A, b, x, zp, beta, gamma, thr, done, shr = _step_operands(
+        16, 200, 400, frozen=True, shrink=True)
+    got = fused_fista_step(A, b, x, zp, beta, gamma, thr, done, shr,
+                           restart=True)
+    want = xla_fista_step(A, b, x, zp, beta, gamma, thr, done, shr,
+                          restart=True)
+    for g, w in zip(got, want):
+        scale = max(1.0, float(jnp.max(jnp.abs(w))))
+        assert float(jnp.max(jnp.abs(g - w))) <= 2e-5 * scale
+    assert lasso_step_route(A) == "kernel"

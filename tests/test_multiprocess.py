@@ -1,8 +1,7 @@
-"""REAL multi-process execution of the distributed glue (VERDICT r2
-missing #3): two OS processes, 4 virtual CPU devices each, one global
-8-device mesh via ``initialize_distributed`` + ``global_mesh``, the
+"""REAL multi-process execution of the distributed glue: two OS
+processes, 4 virtual CPU devices each, one global 8-device mesh via ``initialize_distributed`` + ``global_mesh``, the
 unmodified jitted batched solver running SPMD with genuine cross-process
-collectives (Gloo — the CPU stand-in for a multi-host slice's DCN).
+collectives (Gloo — the CPU stand-in for a multi-host cluster's network).
 
 The workers assert lane parity and identical iteration counts against
 single-device local solves; this test asserts both workers succeed.

@@ -83,10 +83,10 @@ def test_random_100d(name, k):
 
 @pytest.mark.parametrize("k", [1, 2, 3])
 def test_lilin_theta_restart(k):
-    """TPU-extra opt-in safeguard: resetting the extrapolation sequence on
+    """Extension opt-in safeguard: resetting the extrapolation sequence on
     a monitor failure keeps every converging instance converging (counts
     in the same regime) and measurably rescues cycling instances on the
-    chip family study (88% -> 94.5% converged, BASELINE.md round 4).
+    family study (88% -> 94.5% converged).
     Semantics-only check here: the flag solves the reference instances to
     the same residual criterion."""
     Q, q, low, upp, gamma = random_problem(k)

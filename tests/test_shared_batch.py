@@ -1,11 +1,11 @@
 """Lane-invariant (Shared) problem data in batched solves.
 
-The reference has no batching (SURVEY.md §2.6); scenario batching is a TPU
+The reference has no batching (SURVEY.md §2.6); scenario batching is a batched-build
 capability, and ``Shared`` is its operand-sharing axis: a
 regularization-path sweep shares (A, b) across lanes and varies ``lam``,
 a multi-RHS solve shares A — in both, stacking B identical copies of the
 operand forces a batched-GEMV lowering where a lane-invariant operand makes
-the same step a single MXU matmul.
+the same step a single matmul.
 
 These tests pin the *semantics*: a Shared problem must produce the same
 per-lane solutions (and iteration counts, up to summation-order roundoff of

@@ -4,7 +4,7 @@ min_x (1/m) sum_i max(0, 1 - y_i <a_i, x>) + lam/2 ||x||^2
 
 The hinge term is nonsmooth AND composed with the data matrix, so this is
 native primal-dual territory (the reference's AFBA/Chambolle-Pock family,
-``src/algorithms/primal_dual.jl``; the SVM problem family itself is a TPU
+``src/algorithms/primal_dual.jl``; the SVM problem family itself is a batched-build
 build addition — the reference never exercises a hinge loss).  Correctness
 is pinned three ways: two structurally different solver routes must agree
 (Chambolle-Pock: everything nonsmooth; Vu-Condat: the ridge term used as

@@ -5,7 +5,7 @@
 solved via Chambolle-Pock with the implicit 2-D gradient operator
 (:class:`~proxtpu.ops.linops.Grad2DOperator`, ||L||^2 <= 8) and via AFBA
 with the smooth data term; cross-algorithm agreement is the correctness
-oracle (BASELINE.md lists TV denoising as a solution-parity workload; the
+oracle (TV denoising is a solution-parity workload; the
 reference has no TV test, so there is no hardcoded solution to pin).
 """
 

@@ -93,7 +93,8 @@ def test_tv_afba_theta2_matches(noisy):
 
 
 def test_tv_interpret_kernel_path(noisy):
-    """use_kernels='interpret' exercises the real Pallas TV kernel on CPU."""
+    """use_kernels='interpret' (which only changes the lasso step) keeps the
+    TV route and its answers."""
     kw = tv_kwargs(noisy)
     fast = BatchedAlgorithm(make_chambolle_pock_iteration, maxit=MAXIT,
                             tol=TOL, use_kernels="interpret")
@@ -104,8 +105,8 @@ def test_tv_interpret_kernel_path(noisy):
 
 
 def test_tv_per_image_lam_matches(noisy):
-    """Per-image regularization weights still dispatch (solve_tv_batch
-    routes them to the pure-XLA step internally) and agree per lane."""
+    """Per-image regularization weights still dispatch and agree per
+    lane."""
     lam = jnp.asarray([0.05, 0.1, 0.15, 0.2], jnp.float32)
     kw = tv_kwargs(noisy, lam=lam)
     assert match_tv_solver(

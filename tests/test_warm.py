@@ -1,7 +1,7 @@
 """Precision warm-starting (f32 stage 1 -> f64 polish): solution parity
 with a cold f64 solve at the same tolerance, on the 8-virtual-device CPU
 mesh conftest configures.  The chip throughput claim lives in
-``benchmarks/x64_batched.py`` / ``results_x64_batched.jsonl``."""
+``benchmarks/x64_batched.py``."""
 
 import jax
 import jax.numpy as jnp
@@ -68,13 +68,12 @@ def test_warm_started_matches_cold_f64(tol):
 
 @pytest.mark.parametrize("tol", [1e-6, 1e-8])
 def test_warm_started_adaptive_restart_parity(tol):
-    """Round-5: AdaptiveRestartSequence through the warm f32->f64 path.
+    """AdaptiveRestartSequence through the warm f32->f64 path.
 
     The restart trajectory differs from textbook FISTA but must satisfy
     the SAME f64 FB-residual criterion at every lane, converge every
     lane, and cut iterations (the O'Donoghue-Candès effect measured at
-    3-6x on this family, BASELINE.md).  Chip rows:
-    ``benchmarks/results_x64_batched.jsonl`` (``x64_restart_*``)."""
+    3-6x on this family)."""
     from proxtpu.accel import AdaptiveRestartSequence
 
     A, b, lams, Lf = lam_path_problem()
